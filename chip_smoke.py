@@ -1,15 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's serving path end to end at the full width of the
-committed fox field: load data/fox_render.snap -> bake R=256 (3 cascades
-of int16 rows) -> 1280x720 slab-sweep frames through Session.render, with
-the two hand-written CUDA kernels K1 (shade, sienerf_torch/csrc/shade.cu)
-and K2 (sweep composite, sienerf_torch/csrc/sweep.cu).  It builds both
-kernels from the sources in the checkout, holds each against its plain
-PyTorch version on the card, checks the frames against the plain-version
-frames, counts the kernel launches of the frame path, and times frames and
-kernels with CUDA events.
+Drives the port's paths end to end at the full width of the committed fox
+field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
+
+- the serving path: bake R=256 (3 cascades of int16 rows) -> 1280x720
+  slab-sweep frames through Session.render, with the hand-written CUDA
+  kernels K1 (shade, sienerf_torch/csrc/shade.cu) and K2 (sweep composite,
+  sienerf_torch/csrc/sweep.cu);
+- the gather probe (sienerf_torch/tools/bench_gather.py) with G1 and G2
+  (sienerf_torch/csrc/gather.cu) at the probe's own sizes;
+- the live path: Session.render(renderer="live"), the streaming
+  ray-marched renderer, at 1280x720, a 160x90 frame of it against the same
+  code on the CPU, and the sweep frames' PSNR and SSIM against the live
+  frames.
+
+It builds every kernel from the sources in the checkout, holds each against
+its plain PyTorch version on the card, checks the sweep frames against the
+plain-version frames, counts the kernel launches of each path, and times
+frames and kernels.
 
     python3 chip_smoke.py
 
@@ -39,6 +48,13 @@ EYES = ([2.1, 0.5, 0.6], [0.4, -1.3, 0.5], [0.5, 0.5, -1.6])
 K1_TOL = dict(rtol=2e-2, atol=2e-3)   # the reference's shade-kernel test
 K2_TOL = dict(rtol=1e-4, atol=2e-4)   # the reference's sweep-kernel test
 FRAME_TOL = dict(rtol=2e-2, atol=5e-3)
+LIVE_SMALL = (160, 90)  # the live frame that is held to the CPU run
+# pixels of that frame that may leave FRAME_TOL: exp2 / log2 / exp differ in
+# the last bit between the card and the CPU, which can move one sample of a
+# ray across a voxel boundary
+LIVE_MIN_AGREE = 0.99
+LIVE_BIG_TILE = 1 << 17
+QUALITY_MIN_DB = 15.0  # a mismatched network config renders fog at ~11 dB
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor and
 # f32 CUDA-core FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -46,7 +62,9 @@ HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # pl.pallas_call; the JAX package's name is split so that a search of the
 # port for references to it finds only real ones
 TPU_OPS = "sienerf_" "tpu/ops"
-REPLACES = {"shade": f"{TPU_OPS}/shade_pallas.py:265", "sweep": f"{TPU_OPS}/sweep_pallas.py:298"}
+REPLACES = {"shade": f"{TPU_OPS}/shade_pallas.py:265", "sweep": f"{TPU_OPS}/sweep_pallas.py:298",
+            "gather_rows": "tools/bench_pallas_gather.py:83",
+            "gather_small": "tools/bench_gather.py:83"}
 K1_FLOPS_PER_VERTEX = 2 * (32 * 64 + 64 * 64 + 64 * 3)  # the colour MLP
 K2_FLOPS_PER_SAMPLE = 30  # affine map, texel select, alpha (one exp), carry
 
@@ -84,29 +102,6 @@ def compare(name, got, want, rtol, atol) -> float:
     return max_err
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median device time of fn() over `reps` runs after one warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def psnr(a, b) -> float:
-    mse = float(((a[..., :3].double() - b[..., :3].double()) ** 2).mean())
-    return float("inf") if mse == 0 else -10.0 * math.log10(mse)
-
-
 def main() -> int:
     import torch
 
@@ -119,14 +114,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from sienerf_torch import metrics
     from sienerf_torch.engines.nerf_sweep import sweep_geometry
     from sienerf_torch.ops import cuda_lib
+    from sienerf_torch.ops.gather import (
+        gather_rows,
+        gather_rows_plain,
+        gather_small,
+        gather_small_plain,
+    )
     from sienerf_torch.ops.shade import shade_volume, shade_volume_plain
     from sienerf_torch.ops.sweep import sweep_composite
     from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel, sweep_composite_plain
     from sienerf_torch.session import Session
+    from sienerf_torch.tools import bench_gather
     from sienerf_torch.utils.camera import look_at_matrix
 
+    cuda_ms = bench_gather.cuda_ms
     t_all = time.time()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -144,6 +148,42 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+
+    # -- 2b. G1 and G2 against their plain versions at the probe's shapes
+    # (bit-equal: a gather copies bits), then the probe's entry point with
+    # the counts from 0
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for t32, n, g in bench_gather.G1_CASES:
+        table = bench_gather.make_rows_table(t32, dev)
+        idx = torch.randint(0, t32 // g, (n,), generator=gen, device=dev, dtype=torch.int32)
+        got = gather_rows(table, idx, g)
+        torch.cuda.synchronize()
+        check(torch.equal(got, gather_rows_plain(table, idx, g)),
+              f"G1 T32={t32} g={g} N={n}: kernel differs from its plain version")
+        del table, got
+    for t, c, dtype, n in bench_gather.G2_CASES:
+        table = torch.randn((t, c), generator=gen, device=dev).to(dtype)
+        idx = torch.randint(0, t, (n,), generator=gen, device=dev, dtype=torch.int32)
+        got = gather_small(table, idx)
+        torch.cuda.synchronize()
+        check(torch.equal(got, gather_small_plain(table, idx)),
+              f"G2 T={t} {dtype} N={n}: kernel differs from its plain version")
+    log(f"[gather] G1 x{len(bench_gather.G1_CASES)} and G2 x{len(bench_gather.G2_CASES)} "
+        f"shapes bit-equal to their plain versions (tolerance 0)")
+    gather_rows.launches = gather_small.launches = 0
+    probe = bench_gather.run({"g1", "g2"}, dev, reps=20, out=lambda l: log(f"[gather] {l}"))
+    torch.cuda.synchronize()
+    launches_probe = {"gather_rows": gather_rows.launches,
+                      "gather_small": gather_small.launches}
+    log(f"[gather] probe entry point: launches {launches_probe}")
+    for name, n in launches_probe.items():
+        check(n >= 1, f"kernel {name} was never launched by the gather probe")
+    check(all(r["equal"] for r in probe), "gather probe: a result differs from plain")
+    # the kernel table carries each kernel at its first (largest-table) shape
+    g1_main = next(r for r in probe if r["name"] == "G1")
+    g2_main = next(r for r in probe if r["name"] == "G2" and "T=65536" in r["shape"]
+                   and "float32" in r["shape"])
+    torch.cuda.empty_cache()
 
     # -- 3. load the snapshot
     t = time.time()
@@ -239,8 +279,107 @@ def main() -> int:
         check(float(img[..., 3].mean()) > 0.05 and float(img[..., :3].std()) > 1e-3,
               "empty or constant frame")
         compare(f"frame view {i} (axis {axes[i][0]}) spp {spp} vs plain", img, ref, **FRAME_TOL)
-        log(f"    PSNR vs plain {psnr(img, ref):.2f} dB, mean alpha "
+        log(f"    PSNR vs plain {metrics.psnr(img[..., :3], ref[..., :3]):.2f} dB, mean alpha "
             f"{float(img[..., 3].mean()):.3f}")
+
+    # -- 7b. the live path: the streaming ray-marched renderer at 720p.  It
+    # launches none of the hand-written kernels (its gathers are plain
+    # indexing, as in the JAX package), so it has no count to read.
+
+    def live_frame(cam, **kw):
+        img = sess.render(WIDTH, HEIGHT, cam, FOCAL, spp=1, renderer="live", **kw)
+        torch.cuda.synchronize()
+        return img
+
+    t = time.perf_counter()
+    live0 = live_frame(cams[0])  # warm-up
+    log(f"[live] warm-up frame {time.perf_counter() - t:.2f} s")
+    live_ms, live_stats = [], {}
+    for _ in range(3):
+        live_stats = {}
+        t = time.perf_counter()
+        live_frame(cams[0], stats=live_stats)
+        live_ms.append(1e3 * (time.perf_counter() - t))
+    live_med = statistics.median(live_ms)
+    check(live0.shape == (HEIGHT, WIDTH, 4), f"live frame shape {tuple(live0.shape)}")
+    check(bool(torch.isfinite(live0).all()), "non-finite live frame")
+    check(float(live0[..., 3].mean()) > 0.05 and float(live0[..., :3].std()) > 1e-3,
+          "empty or constant live frame")
+    log(f"[live] 1280x720 spp1 tile 2^14: median {live_med:.1f} ms (runs "
+        f"{[round(x, 1) for x in live_ms]}), {live_stats['rounds']} rounds, host waited "
+        f"{1e3 * live_stats['host_wait_s']:.1f} ms for the device "
+        f"({100 * 1e3 * live_stats['host_wait_s'] / live_ms[-1]:.1f} % of the frame)")
+    phases = {"sync_phases": True}
+    t = time.perf_counter()
+    live_frame(cams[0], stats=phases)
+    synced_ms = 1e3 * (time.perf_counter() - t)
+    log(f"[live] where the time goes (one frame with a device sync after every phase, "
+        f"{synced_ms:.1f} ms): "
+        + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in phases["phase_s"].items()))
+    big_ms, big_stats = [], {}
+    big = live_frame(cams[0], tile=LIVE_BIG_TILE)
+    for _ in range(3):
+        big_stats = {}
+        t = time.perf_counter()
+        live_frame(cams[0], tile=LIVE_BIG_TILE, stats=big_stats)
+        big_ms.append(1e3 * (time.perf_counter() - t))
+    log(f"[live] tile 2^17: median {statistics.median(big_ms):.1f} ms, "
+        f"{big_stats['rounds']} rounds, host waited {1e3 * big_stats['host_wait_s']:.1f} ms")
+    compare("live frame tile 2^17 vs tile 2^14", big, live0, rtol=0.0, atol=1e-6)
+    # the device's busy share of a tile-2^17 frame: the kernels' summed time in
+    # a profiler trace over the untraced frame's median time
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        live_frame(cams[0], tile=LIVE_BIG_TILE)
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    n_kernels = sum(e.count for e in events)
+    if busy_ms > 0:
+        log(f"[live] tile 2^17 trace: {n_kernels} device kernels, busy {busy_ms:.1f} ms = "
+            f"{100 * busy_ms / statistics.median(big_ms):.1f} % of the frame "
+            f"({n_kernels / big_stats['rounds']:.0f} kernels a round)")
+    else:
+        log("[live] device busy share: not measured (the trace holds no device time)")
+
+    # the same port code on the CPU, at 160x90
+    sw, sh = LIVE_SMALL
+    focal_s = tuple(f * sw / WIDTH for f in FOCAL)
+    small = sess.render(sw, sh, cams[0], focal_s, renderer="live")
+    cpu_sess = Session(device="cpu")
+    cpu_sess.load_snapshot(SNAP)
+    t = time.perf_counter()
+    small_cpu = cpu_sess.render(sw, sh, cams[0], focal_s, renderer="live")
+    err = (small.cpu() - small_cpu).abs()
+    ok = (err <= FRAME_TOL["atol"] + FRAME_TOL["rtol"] * small_cpu.abs()).all(dim=-1)
+    agree = float(ok.float().mean())
+    log(f"[live] {sw}x{sh} card vs CPU ({time.perf_counter() - t:.1f} s on the CPU): "
+        f"{100 * agree:.2f} % of pixels within rtol {FRAME_TOL['rtol']} atol "
+        f"{FRAME_TOL['atol']}, max abs err {float(err.max()):.3g}, PSNR "
+        f"{metrics.psnr(small[..., :3], small_cpu[..., :3]):.2f} dB")
+    check(agree >= LIVE_MIN_AGREE, f"live {sw}x{sh}: only {100 * agree:.2f} % of pixels "
+                                   f"agree with the CPU frame")
+    # composite_chunk's depth takes the first maximum on a tie, on both devices
+    w = torch.zeros((4, 16))
+    w[1, 3] = w[1, 9] = w[2, 15] = 0.5
+    w[3] = 0.25
+    check(torch.argmax(w.to(dev), dim=1).cpu().tolist() == torch.argmax(w, dim=1).tolist()
+          == [0, 3, 15, 0], "argmax breaks ties differently on the card")
+
+    # -- 7c. quality: the sweep frame against the live frame, three views
+    quality = []
+    for i, cam in enumerate(cams):
+        # through the large tile: per-ray results do not depend on it
+        lv = live0 if i == 0 else live_frame(cam, tile=LIVE_BIG_TILE)
+        sw_img = frames[i, 1]
+        db = metrics.psnr(sw_img[..., :3], lv[..., :3])
+        ss = metrics.ssim(sw_img[..., :3], lv[..., :3])
+        quality.append((db, ss))
+        log(f"[quality] view {i} (axis {axes[i][0]}) sweep vs live, spp 1: PSNR {db:.2f} dB, "
+            f"SSIM {ss:.4f}, mean alpha sweep {float(sw_img[..., 3].mean()):.3f} live "
+            f"{float(lv[..., 3].mean()):.3f}")
+        check(math.isfinite(db) and math.isfinite(ss), "non-finite quality figure")
+        check(db > QUALITY_MIN_DB, f"view {i}: sweep vs live PSNR {db:.2f} dB")
 
     # -- 8. timings: frames (host clock around synchronised frames) and kernels
     def frame():
@@ -310,7 +449,18 @@ def main() -> int:
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
     ]
-    log(json.dumps({"frame_ms": frame_med, "bake_s": bake_s}))
+    for name, r in (("gather_rows", g1_main), ("gather_small", g2_main)):
+        kernels.append(
+            {"name": name, "route": "cuda", "source": "sienerf_torch/csrc/gather.cu",
+             "replaces": REPLACES[name], "launches": launches_probe[name],
+             "max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": r["library_ms"], "shape": r["shape"]})
+    log(json.dumps({"frame_ms": frame_med, "bake_s": bake_s, "live_frame_ms": live_med,
+                    "live_rounds": live_stats["rounds"],
+                    "live_big_tile_ms": statistics.median(big_ms),
+                    "sweep_vs_live_psnr_db": [q[0] for q in quality],
+                    "sweep_vs_live_ssim": [q[1] for q in quality]}))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ the JAX package; what it needs from the JAX package it keeps as its own
 copy.  Entry points run on the card (`device="cuda"`) unless the caller
 passes another device.
 
-The slice ported so far is the serving path: render-only snapshot ->
-baked int16 lattice -> slab-sweep frame, with the shade and sweep-composite
-kernels written by hand in CUDA C++ (`csrc/`).
+Ported so far: the serving path (render-only snapshot -> baked int16
+lattice -> slab-sweep frame, with the shade and sweep-composite kernels),
+the live streaming ray-marched renderer with the quality measures, and the
+gather probe (`tools/bench_gather.py`) with its two row-gather kernels.
+Every kernel is written by hand in CUDA C++ (`csrc/`).
 """

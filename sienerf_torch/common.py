@@ -1,5 +1,5 @@
 """Shared enums and constants (port of the JAX package's common.py, the subset the
-serving path reads).  Values are identical so snapshots and configs mean the
+ported paths read).  Values are identical so snapshots and configs mean the
 same thing in both packages."""
 
 from __future__ import annotations
@@ -28,9 +28,25 @@ class LensMode(enum.Enum):
     EQUIRECTANGULAR = "equirectangular"
 
 
+class TonemapCurve(enum.Enum):
+    IDENTITY = "identity"
+    ACES = "aces"
+    HABLE = "hable"
+    REINHARD = "reinhard"
+
+
+class ColorSpace(enum.Enum):
+    LINEAR = "linear"
+    SRGB = "srgb"
+
+
+NERF_GRIDSIZE = 128
+NERF_CASCADES = 8
 NERF_STEPS = 1024  # finest number of steps per unit length
 SQRT3 = math.sqrt(3.0)
 STEPSIZE = SQRT3 / NERF_STEPS
 MIN_CONE_STEPSIZE = STEPSIZE
+# the largest step is the width of the coarsest occupancy-grid cell
+MAX_CONE_STEPSIZE = STEPSIZE * (1 << (NERF_CASCADES - 1)) * NERF_STEPS / NERF_GRIDSIZE
 NERF_RENDERING_NEAR_DISTANCE = 0.05
 NERF_MIN_OPTICAL_THICKNESS = 0.01

@@ -1,8 +1,8 @@
 """Carry weights and bakes across from the JAX package's numpy form.
 
-The JAX package packs fp8 table rows as f32 bitcasts and int16 bake rows
-as int32 pairs for its TPU gathers; the port keeps the bytes in their own
-types.  These helpers take plain numpy arrays (no JAX import) so the same
+The JAX package packs fp8 and bf16 table rows as f32 bitcasts and int16
+bake rows as int32 pairs for its TPU gathers; the port keeps the bytes in
+their own types.  These helpers take plain numpy arrays (no JAX import) so the same
 field can feed both packages.
 """
 
@@ -24,8 +24,11 @@ def params_from_jax(np_params: dict,
     """JAX render params as numpy -> the port's params.
 
     `grid_fp8` may be the JAX loader's f32-bitcast rows (L, T, C*F/4) or the
-    e4m3 bytes as uint8 (L, T, C*F); either becomes uint8 (L, T, C*F).  fp16
-    leaves widen to f32; MLP weight lists stay lists."""
+    e4m3 bytes as uint8 (L, T, C*F); either becomes uint8 (L, T, C*F).
+    `grid_bf16` is pack_table_bf16's f32-bitcast rows (L, T, C*F/2, the
+    first value of a pair in the low half) and becomes bfloat16
+    (L, T, C*F).  The f32 `grid`, (L, T, C, F) or flat (L, T*C*F), passes
+    through.  fp16 leaves widen to f32; MLP weight lists stay lists."""
     out = {}
     for k, v in np_params.items():
         if k == "grid_fp8":
@@ -34,6 +37,13 @@ def params_from_jax(np_params: dict,
                 raise ValueError(f"grid_fp8 must be (L, T, row), got {a.shape}")
             u8 = a.view(np.uint8).reshape(a.shape[0], a.shape[1], -1)
             out[k] = torch.from_numpy(np.array(u8)).to(device)
+        elif k == "grid_bf16":
+            a = np.ascontiguousarray(np.asarray(v))
+            if a.ndim != 3 or a.dtype != np.float32:
+                raise ValueError(f"grid_bf16 must be f32 (L, T, row/2), got "
+                                 f"{a.dtype} {a.shape}")
+            i16 = a.view("<i2").reshape(a.shape[0], a.shape[1], -1)
+            out[k] = torch.from_numpy(np.array(i16)).view(torch.bfloat16).to(device)
         elif isinstance(v, (list, tuple)):
             out[k] = [_leaf(w, device) for w in v]
         else:

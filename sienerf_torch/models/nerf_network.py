@@ -3,8 +3,10 @@ of the JAX package's models/nerf_network.py).
 
 Topology: pos -> hash grid -> density MLP -> 16 geo features (density is
 channel 0); [SH(dir), extra dims, geo features] -> rgb MLP -> 3.  Output
-activations are applied outside the MLPs.  Only the 3-D grid position
-encoding read from the fp8 render table is ported.
+activations are applied outside the MLPs.  The position encoding is a 3-D
+grid (f32 cell table, or its bf16 / fp8 render packing) or one of the
+analytic encodings; the triplane variant and extra-dim conditioning are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -14,39 +16,65 @@ from dataclasses import dataclass
 import torch
 
 from sienerf_torch.common import NerfActivation
-from sienerf_torch.ops.hashgrid import HashGridConfig, hashgrid_encode_fp8
+from sienerf_torch.ops.encodings import (
+    CompositeSpec,
+    composite_encode,
+    encoding_output_dim,
+    sh_encode,
+)
+from sienerf_torch.ops.hashgrid import (
+    HashGridConfig,
+    hashgrid_encode,
+    hashgrid_encode_bf16,
+    hashgrid_encode_fp8,
+)
 from sienerf_torch.ops.mlp import MLPConfig, mlp_apply
 
 N_GEO_FEATURES = 16
 
 _GRID_OTYPES = ("hashgrid", "densegrid", "tiledgrid", "grid")
+_ANALYTIC_OTYPES = ("frequency", "oneblob", "trianglewave", "identity")
 
 
 @dataclass(frozen=True)
 class NerfNetworkConfig:
-    grid: HashGridConfig
+    # the 3-D grid config, or None for an analytic position encoding
+    grid: HashGridConfig | None
     density_mlp: MLPConfig
     rgb_mlp: MLPConfig
     sh_degree: int = 4
     n_extra_dims: int = 0
     rgb_activation: NerfActivation = NerfActivation.LOGISTIC
     density_activation: NerfActivation = NerfActivation.EXPONENTIAL
+    pos_otype: str = "grid"  # "grid" or an analytic otype
+    pos_opts: tuple = ()  # analytic-encoding params as sorted (key, value) pairs
 
     @staticmethod
     def from_network_config(cfg: dict, aabb_scale: float = 1.0,
                             n_extra_dims: int = 0,
                             hdr: bool = False) -> "NerfNetworkConfig":
         enc = cfg.get("encoding", {})
-        if enc.get("otype", "HashGrid").lower() not in _GRID_OTYPES:
+        ot = enc.get("otype", "HashGrid").lower()
+        pos_opts = ()
+        if ot in _GRID_OTYPES:
+            pos_otype = "grid"
+            grid = HashGridConfig.from_network_config(enc, n_dims=3, aabb_scale=aabb_scale)
+            n_enc = grid.n_output_dims
+        elif ot in _ANALYTIC_OTYPES:
+            pos_otype = ot
+            grid = None
+            opts = {k: v for k, v in enc.items() if k != "otype"}
+            n_enc = encoding_output_dim(ot, 3, opts)
+            pos_opts = tuple(sorted(opts.items()))
+        else:
             raise NotImplementedError(
                 f"NeRF pos encoding {enc.get('otype')} is not ported yet")
-        grid = HashGridConfig.from_network_config(enc, n_dims=3, aabb_scale=aabb_scale)
         sh_degree = 4
         for entry in cfg.get("dir_encoding", {}).get("nested", []):
             if entry.get("otype", "").lower() == "sphericalharmonics":
                 sh_degree = int(entry.get("degree", 4))
         density_mlp = MLPConfig.from_network_config(
-            cfg.get("network", {}), grid.n_output_dims, N_GEO_FEATURES)
+            cfg.get("network", {}), n_enc, N_GEO_FEATURES)
         rgb_in = sh_degree ** 2 + n_extra_dims + N_GEO_FEATURES
         rgb_mlp = MLPConfig.from_network_config(cfg.get("rgb_network", {}), rgb_in, 3)
         return NerfNetworkConfig(
@@ -56,16 +84,45 @@ class NerfNetworkConfig:
             sh_degree=sh_degree,
             n_extra_dims=n_extra_dims,
             rgb_activation=NerfActivation.EXPONENTIAL if hdr else NerfActivation.LOGISTIC,
+            pos_otype=pos_otype,
+            pos_opts=pos_opts,
         )
 
 
 def _encode_pos(config: NerfNetworkConfig, params: dict,
                 pos_unit: torch.Tensor) -> torch.Tensor:
-    """Encode positions warped to [0,1]^3 from the fp8 render table."""
-    if "grid_fp8" not in params:
-        raise NotImplementedError("only the fp8 render table is ported yet")
-    return hashgrid_encode_fp8(config.grid, params["grid_fp8"],
-                               params["grid_fp8_scale"], pos_unit)
+    """Encode positions warped to [0,1]^3.  The grid path reads a packed
+    render table when the params carry one (fp8, then bf16), else the f32
+    table."""
+    if config.pos_otype == "grid":
+        if "grid_fp8" in params:
+            return hashgrid_encode_fp8(config.grid, params["grid_fp8"],
+                                       params["grid_fp8_scale"], pos_unit)
+        if "grid_bf16" in params:
+            return hashgrid_encode_bf16(config.grid, params["grid_bf16"], pos_unit)
+        return hashgrid_encode(config.grid, params["grid"], pos_unit)
+    spec = CompositeSpec(otype=config.pos_otype, params=dict(config.pos_opts))
+    return composite_encode(pos_unit, [spec])
+
+
+def density_raw(config: NerfNetworkConfig, params: dict,
+                pos_unit: torch.Tensor) -> torch.Tensor:
+    """Raw (pre-activation) density for positions warped to [0,1]^3."""
+    feats = _encode_pos(config, params, pos_unit)
+    return mlp_apply(config.density_mlp, params["density_mlp"], feats)[..., 0]
+
+
+def nerf_apply(config: NerfNetworkConfig, params: dict, pos_unit: torch.Tensor,
+               dir_unit_cube: torch.Tensor):
+    """Full forward: (N, 3) warped positions and (N, 3) directions warped to
+    [0,1]^3 -> (rgb_raw (N, 3), density_raw (N,)), both pre-activation."""
+    if config.n_extra_dims:
+        raise NotImplementedError("extra-dim conditioning is not ported yet")
+    feats = _encode_pos(config, params, pos_unit)
+    geo = mlp_apply(config.density_mlp, params["density_mlp"], feats)
+    sh = sh_encode(dir_unit_cube, config.sh_degree)
+    rgb = mlp_apply(config.rgb_mlp, params["rgb_mlp"], torch.cat([sh, geo], dim=-1))
+    return rgb, geo[..., 0]
 
 
 def apply_rgb_activation(raw: torch.Tensor, act: NerfActivation) -> torch.Tensor:

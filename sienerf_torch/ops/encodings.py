@@ -1,10 +1,14 @@
-"""Spherical-harmonics direction encoding (port of
-the JAX package's ops/encodings.py::sh_encode, degree <= 4).
+"""Input encodings besides the hash grid (port of the JAX package's
+ops/encodings.py): spherical harmonics (degree <= 4), frequency, one-blob,
+triangle wave, identity, and the composite dispatch of tcnn configs.
 
 tcnn's SH encoding takes directions warped into [0,1]^3, (d + 1) / 2; the
 same convention is kept so both packages see the same inputs."""
 
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
 
 import torch
 
@@ -41,3 +45,98 @@ def sh_encode(dirs_unit_cube: torch.Tensor, degree: int = 4) -> torch.Tensor:
             0.59004358992664352 * x * (-x2 + 3.0 * y2),
         ]
     return torch.stack(out, dim=-1)
+
+
+def frequency_encode(x: torch.Tensor, n_frequencies: int) -> torch.Tensor:
+    """NeRF-style sin/cos encoding: (N, D) -> (N, D * n_frequencies * 2),
+    laid out per frequency as [sin of all dims, cos of all dims]."""
+    feats = []
+    for f in range(n_frequencies):
+        arg = x * (math.pi * (2.0 ** f))
+        feats.append(torch.sin(arg))
+        feats.append(torch.cos(arg))
+    return torch.cat(feats, dim=-1)
+
+
+def oneblob_encode(x: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """One-blob encoding: a gaussian kernel splatted over n_bins per input
+    dim on the torus [0,1).  (N, D) -> (N, D * n_bins)."""
+    N, D = x.shape
+    centers = (torch.arange(n_bins, dtype=torch.float32, device=x.device) + 0.5) / n_bins
+    diff = x[..., None] - centers  # (N, D, B)
+    diff = diff - torch.round(diff)
+    sigma = 1.0 / n_bins
+    val = torch.exp(-0.5 * (diff / sigma) ** 2) / (sigma * math.sqrt(2.0 * math.pi))
+    return (val / n_bins).reshape(N, D * n_bins)
+
+
+def trianglewave_encode(x: torch.Tensor, n_frequencies: int) -> torch.Tensor:
+    feats = []
+    for f in range(n_frequencies):
+        arg = x * (2.0 ** f)
+        feats.append(2.0 * torch.abs(arg - torch.floor(arg + 0.5)))
+    return torch.cat(feats, dim=-1)
+
+
+@dataclass(frozen=True)
+class CompositeSpec:
+    """One nested entry of a tcnn Composite encoding."""
+
+    otype: str
+    n_dims_to_encode: int | None = None
+    params: dict = field(default_factory=dict)
+
+
+def composite_encode(x: torch.Tensor, specs: list[CompositeSpec]) -> torch.Tensor:
+    """Apply encodings to consecutive slices of the input dims; an entry
+    without n_dims_to_encode takes the remaining dims (tcnn's rule)."""
+    outs = []
+    offset = 0
+    total = x.shape[-1]
+    for spec in specs:
+        nd = spec.n_dims_to_encode
+        if nd is None:
+            nd = total - offset
+        xi = x[..., offset:offset + nd]
+        offset += nd
+        ot = spec.otype.lower()
+        if nd == 0:
+            continue
+        if ot == "sphericalharmonics":
+            outs.append(sh_encode(xi, int(spec.params.get("degree", 4))))
+        elif ot == "frequency":
+            outs.append(frequency_encode(xi, int(spec.params.get("n_frequencies", 12))))
+        elif ot == "oneblob":
+            outs.append(oneblob_encode(xi, int(spec.params.get("n_bins", 16))))
+        elif ot == "trianglewave":
+            outs.append(trianglewave_encode(xi, int(spec.params.get("n_frequencies", 12))))
+        elif ot == "identity":
+            outs.append(xi)
+        else:
+            raise ValueError(f"unsupported composite encoding otype: {spec.otype}")
+    return torch.cat(outs, dim=-1) if outs else x[..., :0]
+
+
+def composite_specs_from_config(cfg: dict) -> list[CompositeSpec]:
+    specs = []
+    for entry in cfg.get("nested", []):
+        e = dict(entry)
+        otype = e.pop("otype")
+        nd = e.pop("n_dims_to_encode", None)
+        specs.append(CompositeSpec(otype=otype, n_dims_to_encode=nd, params=e))
+    return specs
+
+
+def encoding_output_dim(otype: str, n_dims: int, params: dict) -> int:
+    ot = otype.lower()
+    if ot == "sphericalharmonics":
+        return int(params.get("degree", 4)) ** 2
+    if ot == "frequency":
+        return n_dims * int(params.get("n_frequencies", 12)) * 2
+    if ot == "oneblob":
+        return n_dims * int(params.get("n_bins", 16))
+    if ot == "trianglewave":
+        return n_dims * int(params.get("n_frequencies", 12))
+    if ot == "identity":
+        return n_dims
+    raise ValueError(f"unknown encoding otype {otype}")

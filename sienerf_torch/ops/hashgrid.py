@@ -1,6 +1,13 @@
-"""Multiresolution hash-grid encoding, forward of the fp8 render table
-(port of the JAX package's ops/hashgrid.py: HashGridConfig, _static_level_data,
-_geometry_cell, hashgrid_encode_fp8).
+"""Multiresolution hash-grid encoding, forward only (port of the JAX
+package's ops/hashgrid.py: HashGridConfig, _static_level_data,
+_geometry_cell, the forward of hashgrid_encode for cell-layout tables, and
+the render-side packed tables pack_table_bf16 / hashgrid_encode_bf16 and
+pack_table_fp8 / hashgrid_encode_fp8).
+
+The JAX package carries packed render tables as f32 bitcasts for its TPU
+gathers; here a bf16 table is a bfloat16 tensor (L, T, C*F) and an fp8
+table its e4m3 bytes as uint8 (L, T, C*F), the same bits
+(convert.params_from_jax maps one to the other).
 
 Semantics (tcnn):
   scale_l = base_resolution * per_level_scale**l - 1
@@ -145,6 +152,83 @@ def _geometry_cell(config: HashGridConfig, pos: torch.Tensor):
     return idx, w
 
 
+def _table4(config: HashGridConfig, table: torch.Tensor) -> torch.Tensor:
+    """Canonical view of a cell table handed over flat as (L, T*C*F)."""
+    if table.dim() != 2:
+        return table
+    return table.reshape(config.n_levels, config.table_size, 1 << config.n_dims,
+                         config.n_features_per_level)
+
+
+def _pad_cell_table(config: HashGridConfig, table: torch.Tensor) -> torch.Tensor:
+    """(L, T, C, F) -> (L, T, C*Fp) with each corner's features zero-padded
+    so that a row holds at least 32 values (the layout of the backward
+    scatter)."""
+    L, T, C, F = table.shape
+    Fp = max(F, max(32 // C, 1))
+    if Fp != F:
+        table = torch.nn.functional.pad(table, (0, Fp - F))
+    return table.reshape(L, T, C * Fp)
+
+
+def _interpolate(config: HashGridConfig, pos: torch.Tensor, level_rows) -> torch.Tensor:
+    """Trilinear blend of each level's cell row.  `level_rows(l, idx)` gives
+    the (N, C, F) f32 corner features of level l's rows idx (N,) int64.
+    pos (N, D) in [0,1]^D -> (N, L*F) f32.  One gather per level: each row
+    holds its cell's 2^D corner vectors."""
+    L, F = config.n_levels, config.n_features_per_level
+    idx, w = _geometry_cell(config, pos)
+    outs = [(level_rows(l, idx[:, l]) * w[:, l, :, None]).sum(dim=1) for l in range(L)]
+    return torch.stack(outs, dim=1).reshape(pos.shape[0], L * F)
+
+
+def _require_cell(config: HashGridConfig) -> None:
+    if config.layout != "cell":
+        raise NotImplementedError("the corner table layout is not ported yet")
+
+
+def hashgrid_encode(config: HashGridConfig, table: torch.Tensor,
+                    pos: torch.Tensor) -> torch.Tensor:
+    """Forward encode from the f32 cell table (L, T, C, F), or the same
+    flattened to (L, T*C*F); pos (N, D) in [0,1]^D -> (N, L*F) f32.  The
+    gradient is not ported yet."""
+    _require_cell(config)
+    C, F = 1 << config.n_dims, config.n_features_per_level
+    table = _table4(config, table).reshape(config.n_levels, config.table_size, C * F)
+    return _interpolate(
+        config, pos, lambda l, idx: table[l].index_select(0, idx).reshape(-1, C, F))
+
+
+def pack_table_bf16(config: HashGridConfig, table: torch.Tensor) -> torch.Tensor:
+    """Render-only packing of the f32 cell table: (L, T, C, F) ->
+    bfloat16 (L, T, C*F), half the gathered bytes."""
+    _require_cell(config)
+    C, F = 1 << config.n_dims, config.n_features_per_level
+    return _table4(config, table).reshape(
+        config.n_levels, config.table_size, C * F).to(torch.bfloat16)
+
+
+def hashgrid_encode_bf16(config: HashGridConfig, packed: torch.Tensor,
+                         pos: torch.Tensor) -> torch.Tensor:
+    """Forward-only encode from a pack_table_bf16 table."""
+    C, F = 1 << config.n_dims, config.n_features_per_level
+    return _interpolate(
+        config, pos,
+        lambda l, idx: packed[l].index_select(0, idx).float().reshape(-1, C, F))
+
+
+def pack_table_fp8(config: HashGridConfig, table: torch.Tensor):
+    """Render-only quantization of the f32 cell table to e4m3 with one
+    absmax scale per level: (L, T, C, F) -> (uint8 (L, T, C*F) e4m3 bytes,
+    (L,) f32 scales)."""
+    _require_cell(config)
+    C, F = 1 << config.n_dims, config.n_features_per_level
+    t = _table4(config, table).reshape(config.n_levels, config.table_size, C * F)
+    scale = torch.clamp(t.abs().amax(dim=(1, 2)), min=1e-8) / 448.0
+    t8 = (t / scale[:, None, None]).to(torch.float8_e4m3fn)
+    return t8.view(torch.uint8), scale
+
+
 def hashgrid_encode_fp8(config: HashGridConfig, table: torch.Tensor,
                         scale: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Forward-only encode from the e4m3 render table.
@@ -154,16 +238,14 @@ def hashgrid_encode_fp8(config: HashGridConfig, table: torch.Tensor,
     [q*L/Lq, (q+1)*L/Lq)); pos: (N, 3) in [0,1]^3.  -> (N, L*F) f32."""
     L, F = config.n_levels, config.n_features_per_level
     C = 1 << config.n_dims
-    N = pos.shape[0]
     table = table.reshape(L, config.table_size, C * F)
     if scale.shape[0] != L:
         if L % scale.shape[0]:
             raise ValueError(f"{scale.shape[0]} scale groups do not divide {L} levels")
         scale = scale.repeat_interleave(L // scale.shape[0])
-    idx, w = _geometry_cell(config, pos)
-    outs = []
-    for l in range(L):
-        rows = table[l].index_select(0, idx[:, l])  # (N, C*F) uint8
-        cf = rows.view(torch.float8_e4m3fn).float().reshape(N, C, F) * scale[l]
-        outs.append((cf * w[:, l, :, None]).sum(dim=1))
-    return torch.stack(outs, dim=1).reshape(N, L * F)
+
+    def level_rows(l, idx):
+        rows = table[l].index_select(0, idx)  # (N, C*F) uint8
+        return rows.view(torch.float8_e4m3fn).float().reshape(-1, C, F) * scale[l]
+
+    return _interpolate(config, pos, level_rows)

@@ -1,0 +1,240 @@
+"""Ray marching through the occupancy grid and emission-absorption
+compositing (port of the render side of the JAX package's ops/raymarch.py).
+
+Rays are a fixed-shape batch with per-ray alive masks.  A march step tests
+the ray's current position against the packed occupancy grid, emits the
+sample into the ray's next free slot of an (N, K) slab when the voxel is
+occupied, and otherwise hops past the empty voxel in whole cone steps, so
+sample placement matches the reference's `advance_to_next_voxel`.  Every
+function keeps the JAX package's f32 operation order: `t` advances by
+`t + dt` or `t + skip`, and one differing ulp can move a sample across a
+voxel boundary.
+
+The loops are Python loops of plain PyTorch operations.  `compact_samples`
+and `composite_flat` belong to the trainer and are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from sienerf_torch.common import MAX_CONE_STEPSIZE, MIN_CONE_STEPSIZE, NERF_GRIDSIZE
+from sienerf_torch.ops.occupancy import (
+    mip_from_dt,
+    mip_from_pos,
+    occupancy_lookup_packed,
+    pack_occupancy,
+)
+
+
+def calc_dt(t: torch.Tensor, cone_angle: float) -> torch.Tensor:
+    return torch.clamp(t * cone_angle, MIN_CONE_STEPSIZE, MAX_CONE_STEPSIZE)
+
+
+def _as_packed(bitfield: torch.Tensor) -> torch.Tensor:
+    """Accept a (C, G, G, G) bool bitfield or its pack_occupancy words
+    (int32).  Frame renderers pack once and pass the words through."""
+    if bitfield.dtype == torch.int32:
+        return bitfield
+    return pack_occupancy(bitfield)
+
+
+def cone_angle_for_aabb(aabb_scale: float, cone_angle_constant: float = 1.0 / 256.0) -> float:
+    """Uniform steps inside the unit cube, cone stepping for larger scenes."""
+    return 0.0 if aabb_scale <= 1.0 else cone_angle_constant
+
+
+def _next_voxel_skip(t, pos, d, mip, dt, grid_size: int = NERF_GRIDSIZE):
+    """Distance to hop past the current (empty) voxel at cascade `mip`,
+    rounded up to whole dt steps."""
+    scale = torch.exp2(mip.float())
+    p = ((pos - 0.5) / scale[..., None] + 0.5) * grid_size  # grid coords
+    dg = d * (grid_size / scale[..., None])  # d(grid coords)/dt
+    flat = dg.abs() < 1e-12
+    safe = torch.where(flat, 1e-12, dg)
+    nb = torch.floor(p) + (dg > 0).float()
+    delta = (nb - p) / safe
+    delta = torch.where(flat, float("inf"), delta)
+    tau = delta.amin(dim=-1)  # world-t units to the nearest boundary
+    tau = torch.clamp(tau, min=0.0) + 1e-5 * scale
+    n_steps = torch.clamp(torch.ceil(tau / dt), 1.0, 1e6)
+    return n_steps * dt
+
+
+@dataclass(frozen=True)
+class MarchConfig:
+    n_cascades: int = 1
+    cone_angle: float = 0.0
+    grid_size: int = NERF_GRIDSIZE
+
+
+def _probe_mip(config: MarchConfig, pos, dt):
+    return torch.maximum(mip_from_pos(pos, config.n_cascades),
+                         mip_from_dt(dt, config.n_cascades, config.grid_size))
+
+
+@torch.no_grad()
+def march_rays(config: MarchConfig, bitfield: torch.Tensor, origins: torch.Tensor,
+               dirs: torch.Tensor, t_start: torch.Tensor, t_far: torch.Tensor,
+               n_samples: int, n_iters: int, span: int = 1,
+               fine: torch.Tensor | None = None):
+    """Collect up to `n_samples` occupied-space samples per ray within a
+    bounded march -> ts (N, K), dts (N, K), counts (N,), t_end (N,).
+
+    bitfield: (C, G, G, G) bool or its packed words; origins, dirs (N, 3),
+    dirs unit; t_start, t_far (N,).  `fine` is a render-baked bool grid at
+    a multiple of G (two-level march, span 1 only).  span > 1 tests `span`
+    consecutive cone-step candidates per iteration with one batched
+    occupancy probe, emits the leading occupied run and then makes at most
+    one voxel skip: the same samples as the one-candidate loop in `span`
+    times fewer iterations (`n_iters` then counts those iterations)."""
+    if span <= 1:
+        return _march_rays_scalar(config, bitfield, origins, dirs, t_start, t_far,
+                                  n_samples, n_iters, fine=fine)
+    if fine is not None:
+        raise ValueError("span marching does not support the fine render grid")
+    N, K, S = origins.shape[0], n_samples, span
+    dev = origins.device
+    iota_K = torch.arange(K, device=dev)[None, :]
+    iota_S1 = torch.arange(S + 1, device=dev)[None, :]
+    words = _as_packed(bitfield)
+
+    t = t_start
+    k = torch.zeros((N,), dtype=torch.int64, device=dev)
+    ts = torch.zeros((N, K), dtype=torch.float32, device=dev)
+    dts = torch.zeros((N, K), dtype=torch.float32, device=dev)
+    for _ in range(n_iters):
+        # cone-step candidate chain t_0..t_{S-1} and its end point
+        t_list, dt_list = [], []
+        tj = t
+        for _j in range(S):
+            dtj = calc_dt(tj, config.cone_angle)
+            t_list.append(tj)
+            dt_list.append(dtj)
+            tj = tj + dtj
+        t_stack = torch.stack(t_list + [tj], dim=1)  # (N, S+1)
+        dt_stack = torch.stack(dt_list, dim=1)  # (N, S)
+        pos = origins[:, None, :] + t_stack[:, :S, None] * dirs[:, None, :]
+        mip = _probe_mip(config, pos, dt_stack)
+        occ = occupancy_lookup_packed(words, config.grid_size, pos, mip)
+        in_range = t_stack[:, :S] < t_far[:, None]
+        n_lead = torch.cumprod((occ & in_range).to(torch.int64), dim=1).sum(dim=1)
+        ray_active = (t < t_far) & (k < K)
+        m = torch.where(ray_active, torch.minimum(n_lead, K - k), 0)
+        # emit candidates j < m into slots k..k+m-1
+        for j in range(S):
+            write = (iota_K == (k + j)[:, None]) & (ray_active & (j < m))[:, None]
+            ts = torch.where(write, t_stack[:, j][:, None], ts)
+            dts = torch.where(write, dt_stack[:, j][:, None], dts)
+        # next t: candidate m (the end point when the whole span emitted),
+        # plus a voxel skip only when the run ended at an unoccupied
+        # in-range candidate (not when K or t_far stopped it)
+        t_next = torch.where(iota_S1 == m[:, None], t_stack, 0.0).sum(dim=1)
+        pos_m = origins + t_next[:, None] * dirs
+        dt_m = calc_dt(t_next, config.cone_angle)
+        mip_m = _probe_mip(config, pos_m, dt_m)
+        skip = _next_voxel_skip(t_next, pos_m, dirs, mip_m, dt_m, config.grid_size)
+        do_skip = ray_active & (m == n_lead) & (n_lead < S) & (t_next < t_far)
+        t = torch.where(ray_active, torch.where(do_skip, t_next + skip, t_next), t)
+        k = k + m
+    return ts, dts, k, t
+
+
+def _march_rays_scalar(config: MarchConfig, bitfield, origins, dirs, t_start, t_far,
+                       n_samples: int, n_iters: int, fine=None):
+    """One candidate per iteration.  With `fine`, samples are emitted only
+    where the fine grid is occupied, and empty space is skipped at the
+    coarsest level that is empty: a whole coarse cell where the training
+    grid is empty, one fine cell otherwise."""
+    N, K = origins.shape[0], n_samples
+    dev = origins.device
+    g_fine = fine.shape[1] if fine is not None else config.grid_size
+    words = _as_packed(bitfield)
+    words_fine = _as_packed(fine) if fine is not None else None
+    iota_K = torch.arange(K, device=dev)[None, :]
+
+    t = t_start
+    k = torch.zeros((N,), dtype=torch.int64, device=dev)
+    ts = torch.zeros((N, K), dtype=torch.float32, device=dev)
+    dts = torch.zeros((N, K), dtype=torch.float32, device=dev)
+    for _ in range(n_iters):
+        pos = origins + t[:, None] * dirs
+        dt = calc_dt(t, config.cone_angle)
+        mip = _probe_mip(config, pos, dt)
+        occ = occupancy_lookup_packed(words, config.grid_size, pos, mip)
+        occ_emit = occ
+        if fine is not None:
+            occ_emit = occ & occupancy_lookup_packed(words_fine, g_fine, pos, mip)
+        active = (t < t_far) & (k < K)
+        emit = active & occ_emit
+        write = (iota_K == k[:, None]) & emit[:, None]
+        ts = torch.where(write, t[:, None], ts)
+        dts = torch.where(write, dt[:, None], dts)
+        skip = _next_voxel_skip(t, pos, dirs, mip, dt, config.grid_size)
+        if fine is not None:
+            skip = torch.where(occ, _next_voxel_skip(t, pos, dirs, mip, dt, g_fine), skip)
+        t = torch.where(emit, t + dt, torch.where(active, t + skip, t))
+        k = k + emit.to(torch.int64)
+    return ts, dts, k, t
+
+
+@torch.no_grad()
+def advance_to_occupied(config: MarchConfig, bitfield, origins, dirs, t_start, t_far,
+                        n_iters: int) -> torch.Tensor:
+    """Advance each ray's t through empty space to its first occupied voxel
+    (or t_far) without emitting samples.  Run once per frame over all
+    pixels, so that the streaming renderer's rounds start on content."""
+    words = _as_packed(bitfield)
+    t = t_start
+    for _ in range(n_iters):
+        pos = origins + t[:, None] * dirs
+        dt = calc_dt(t, config.cone_angle)
+        mip = _probe_mip(config, pos, dt)
+        occ = occupancy_lookup_packed(words, config.grid_size, pos, mip)
+        active = (t < t_far) & ~occ
+        skip = _next_voxel_skip(t, pos, dirs, mip, dt, config.grid_size)
+        t = torch.where(active, t + skip, t)
+    return t
+
+
+@torch.no_grad()
+def retreat_to_occupied(config: MarchConfig, bitfield, origins, dirs, t_start, t_far,
+                        n_iters: int) -> torch.Tensor:
+    """advance_to_occupied from the far end: pull each ray's exit time back
+    through trailing empty space to just past its last occupied voxel (or
+    down to t_start).  Walks the reversed ray o' = o + t_far*d, d' = -d."""
+    o_rev = origins + t_far[:, None] * dirs
+    span = torch.clamp(t_far - t_start, min=0.0)
+    s = advance_to_occupied(config, bitfield, o_rev, -dirs, torch.zeros_like(span),
+                            span, n_iters)
+    return t_far - torch.minimum(s, span)
+
+
+def composite_chunk(rgb: torch.Tensor, density: torch.Tensor, ts: torch.Tensor,
+                    dts: torch.Tensor, valid: torch.Tensor, T_in: torch.Tensor,
+                    min_transmittance=1e-4):
+    """Front-to-back emission-absorption over one chunk of samples.
+
+    rgb (N, K, 3) and density (N, K) activated, ts, dts (N, K), valid
+    (N, K) bool, T_in (N,) incoming transmittance; `min_transmittance` a
+    float or a 0-d tensor.  weight = alpha * T; samples after T drops below
+    min_transmittance add nothing; depth is the t of the largest weight
+    (the first one on ties).  -> (rgb_sum (N, 3), opacity (N,), T_out (N,),
+    best_w (N,), best_t (N,))."""
+    alpha = torch.where(valid, 1.0 - torch.exp(-density * dts), 0.0)
+    one_minus = 1.0 - alpha
+    cum = torch.cumprod(one_minus, dim=1)
+    T_excl = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1) * T_in[:, None]
+    live = T_excl >= min_transmittance
+    w = torch.where(live, alpha * T_excl, 0.0)
+    rgb_sum = (w[..., None] * rgb).sum(dim=1)
+    opacity = w.sum(dim=1)
+    T_out = T_in * torch.where(live, one_minus, 1.0).prod(dim=1)
+    T_out = torch.where(T_out < min_transmittance, 0.0, T_out)
+    best = torch.argmax(w, dim=1)
+    onehot = torch.arange(w.shape[1], device=w.device)[None, :] == best[:, None]
+    best_w = w.amax(dim=1)
+    best_t = torch.where(onehot, ts, 0.0).sum(dim=1)
+    return rgb_sum, opacity, T_out, best_w, best_t

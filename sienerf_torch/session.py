@@ -1,6 +1,7 @@
-"""Session façade for the serving path (port of the render-only part of
-the JAX package's session.py::Session): load a render-only snapshot, bake it,
-render slab-sweep frames."""
+"""Session façade for the render paths (port of the render-only part of
+the JAX package's session.py::Session): load a render-only snapshot, render
+it live (the streaming ray-marched renderer), or bake it and render
+slab-sweep frames."""
 
 from __future__ import annotations
 
@@ -73,10 +74,17 @@ class Session:
     def render(self, width: int, height: int, camera_matrix=None, focal=None,
                spp: int = 1, renderer: str = "sweep", **kw) -> torch.Tensor:
         """Offscreen render -> (H, W, 4) f32 rgba tensor on the session's
-        device.  spp > 1 averages passes with low-discrepancy subpixel
-        offsets and stratified slab-phase jitter, in float64."""
-        if renderer != "sweep":
-            raise NotImplementedError(f"renderer {renderer!r} is not ported yet")
+        device.  renderer "sweep" (the default here; the JAX package's
+        default is "live") composites the baked lattice, "live" ray-marches
+        the field itself.  spp > 1 averages passes in float64, each with a
+        low-discrepancy subpixel offset; the sweep adds a stratified
+        slab-phase jitter."""
+        if renderer == "baked":
+            raise NotImplementedError(
+                'renderer "baked" (the baked gather renderer) is not ported yet; '
+                "it comes with Slice E of ROADMAP.md, the rest of ops/baked.py")
+        if renderer not in ("sweep", "live"):
+            raise ValueError(f"unknown renderer {renderer!r}")
         if self.engine is None:
             raise RuntimeError("load_snapshot first")
         eng = self.engine
@@ -85,22 +93,29 @@ class Session:
             focal = tuple(np.asarray(eng.focals[0]) * width / eng.resolution[0])
             kw.setdefault("screen_center", tuple(np.asarray(eng.principal_points[0])))
         cam = np.asarray(camera_matrix, np.float32)
+        focal = tuple(np.asarray(focal, np.float32))
         bake_res = kw.pop("bake_resolution", 256)
         bake_mode = kw.pop("bake_mode", "nearest")
-        if self._baked is None:
+        if renderer == "sweep" and self._baked is None:
             self.bake(resolution=bake_res, mode=bake_mode)
         from sienerf_torch.engines.nerf_sweep import render_frame_sweep
 
-        grid, meta = self._baked
         spp = max(int(spp), 1)
         acc = None
         for i in range(spp):
-            out5 = render_frame_sweep(
-                eng, self.state["params"], grid, meta, cam,
-                tuple(np.asarray(focal, np.float32)), width=width, height=height,
-                pixel_offset=ld_pixel_offset(i) if spp > 1 else None,
-                axis_phase=np.float32((i + 0.5) / spp) if spp > 1 else None,
-                packed=True, **kw)
-            a = out5[:4].permute(1, 2, 0).double()
+            off = ld_pixel_offset(i) if spp > 1 else None
+            if renderer == "sweep":
+                grid, meta = self._baked
+                out5 = render_frame_sweep(
+                    eng, self.state["params"], grid, meta, cam, focal, width=width,
+                    height=height, pixel_offset=off,
+                    axis_phase=np.float32((i + 0.5) / spp) if spp > 1 else None,
+                    packed=True, **kw)
+                rgba = out5[:4].permute(1, 2, 0)
+            else:
+                rgba, _ = eng.render_frame(
+                    self.state["params"], self.state["occ"]["bitfield"], width, height,
+                    cam, focal, pixel_offset=off, **kw)
+            a = rgba.double()
             acc = a if acc is None else acc + a
         return (acc / spp).float()

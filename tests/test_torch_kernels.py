@@ -1,5 +1,6 @@
-"""The CUDA kernels K1 (shade) and K2 (sweep composite) against their plain
-PyTorch versions, and the rule that a kernel wrapper never falls back.
+"""The CUDA kernels K1 (shade), K2 (sweep composite), G1 and G2 (the gather
+probe's row gathers) against their plain PyTorch versions, and the rule
+that a kernel wrapper never falls back.
 
 Tests marked `cuda` need an NVIDIA card and nvcc; they skip elsewhere.
 This file imports no JAX, so on the card it runs without the repo's
@@ -13,7 +14,13 @@ import pytest
 import torch
 
 from sienerf_torch.common import NerfActivation
-from sienerf_torch.ops import cuda_lib, shade, sweep_kernel
+from sienerf_torch.ops import cuda_lib, gather, shade, sweep_kernel
+from sienerf_torch.ops.gather import (
+    gather_rows,
+    gather_rows_plain,
+    gather_small,
+    gather_small_plain,
+)
 from sienerf_torch.ops.shade import shade_volume, shade_volume_plain
 from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel, sweep_composite_plain
 
@@ -170,3 +177,52 @@ def test_fox_frame_kernels_match_plain(cuda):
         b = render_frame_sweep(s.engine, s.state["params"], grid, meta, cam, (48.0, 48.0),
                                width=64, height=64, impl="plain", packed=True)
         torch.testing.assert_close(a, b, rtol=2e-2, atol=5e-3)
+
+
+def _g1_inputs(t32, n, g, seed=0):
+    rng = np.random.default_rng(seed)
+    table = rng.integers(-2 ** 31, 2 ** 31, (t32, 128), dtype=np.int64).astype(np.int32)
+    idx = rng.integers(0, t32 // g, n).astype(np.int32)
+    return table, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n", [(1, 1 << 16), (4, 1000), (3, 12345)])
+def test_g1_kernel_equals_plain(cuda, g, n):
+    table, idx = _g1_inputs(50_000, n, g)
+    table, idx = torch.from_numpy(table).to(cuda), torch.from_numpy(idx).to(cuda)
+    before = gather_rows.launches
+    got = gather_rows(table, idx, g)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    assert torch.equal(got, gather_rows_plain(table, idx, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 32), (torch.bfloat16, 32),
+                                     (torch.float32, 4), (torch.uint8, 48)])
+def test_g2_kernel_equals_plain(cuda, dtype, c):
+    rng = np.random.default_rng(c)
+    t, n = 1 << 13, 100_001
+    table = torch.from_numpy(rng.integers(0, 200, (t, c)).astype(np.float32)).to(dtype).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, t, n).astype(np.int32)).to(cuda)
+    before = gather_small.launches
+    got = gather_small(table, idx)
+    torch.cuda.synchronize()
+    assert gather_small.launches == before + 1
+    assert torch.equal(got, gather_small_plain(table, idx))
+
+
+@pytest.mark.cuda
+def test_gather_wrappers_never_fall_back(cuda, monkeypatch):
+    """With the build broken a CUDA call raises; it does not take the plain
+    version."""
+    def broken(name):
+        raise RuntimeError("build failed")
+
+    monkeypatch.setattr(gather.cuda_lib, "load", broken)
+    table, idx = _g1_inputs(64, 16, 1)
+    with pytest.raises(RuntimeError):
+        gather_rows(torch.from_numpy(table).to(cuda), torch.from_numpy(idx).to(cuda))
+    with pytest.raises(RuntimeError):
+        gather_small(torch.zeros((64, 4), device=cuda), torch.from_numpy(idx).to(cuda))
