@@ -6,8 +6,10 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
 
 - the serving path: bake R=256 (3 cascades of int16 rows) -> 1280x720
   slab-sweep frames through Session.render, with the hand-written CUDA
-  kernels K1 (shade, sienerf_torch/csrc/shade.cu) and K2 (sweep composite,
-  sienerf_torch/csrc/sweep.cu);
+  kernels K1 (shade, sienerf_torch/csrc/shade.cu: the colour MLP on the
+  tensor cores, a channel-last volume) and K2 (sweep composite,
+  sienerf_torch/csrc/sweep.cu: slab intervals, 8-byte texels), K2 on the
+  three sweep axes and on a channel-planar copy of the volume;
 - the gather probe (sienerf_torch/tools/bench_gather.py) with G1 and G2
   (sienerf_torch/csrc/gather.cu) at the probe's own sizes;
 - the live path: Session.render(renderer="live"), the streaming
@@ -115,7 +117,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from sienerf_torch import metrics
-    from sienerf_torch.engines.nerf_sweep import sweep_geometry
+    from sienerf_torch.engines.nerf_sweep import axis_view, sweep_geometry
     from sienerf_torch.ops import cuda_lib
     from sienerf_torch.ops.gather import (
         gather_rows,
@@ -123,7 +125,7 @@ def main() -> int:
         gather_small,
         gather_small_plain,
     )
-    from sienerf_torch.ops.shade import shade_volume, shade_volume_plain
+    from sienerf_torch.ops.shade import kernel_occupancy, shade_volume, shade_volume_plain
     from sienerf_torch.ops.sweep import sweep_composite
     from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel, sweep_composite_plain
     from sienerf_torch.session import Session
@@ -148,6 +150,9 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    k1_blocks, k1_threads = kernel_occupancy()
+    log(f"  shade: {k1_blocks} blocks of {k1_threads} threads "
+        f"({k1_blocks * k1_threads // 32} warps) fit an SM")
 
     # -- 2b. G1 and G2 against their plain versions at the probe's shapes
     # (bit-equal: a gather copies bits), then the probe's entry point with
@@ -207,6 +212,13 @@ def main() -> int:
     log(f"[bake] R={R} K={K}: rows {tuple(rows.shape)} {rows.dtype}, {n_live} of "
         f"{rows.shape[0]} vertices kept, {bake_s:.2f} s")
     check(0 < n_live < rows.shape[0], "bake kept no vertex or every vertex")
+    # how the culled vertices lie: K1 shades kept vertices in batches of 32
+    kept = rows[:, 0] != -32768
+    per_tile = torch.nn.functional.pad(kept, (0, -kept.numel() % 32)).view(-1, 32).sum(1)
+    log(f"[bake] tiles of 32 consecutive vertices: {per_tile.numel()}, "
+        f"{int((per_tile > 0).sum())} with a kept vertex, {int((per_tile == 32).sum())} full; "
+        f"{-(-n_live // 32)} batches of 32 kept vertices")
+    del kept, per_tile
 
     cams = [look_at_matrix(e, [0.5, 0.5, 0.5]) for e in EYES]
     geo = [sweep_geometry(eng, c, FOCAL, width=WIDTH, height=HEIGHT, device=dev) for c in cams]
@@ -218,44 +230,83 @@ def main() -> int:
     acts = dict(density_act=eng.net.density_activation, rgb_act=eng.net.rgb_activation)
 
     # -- 5. K1 against its plain version, the whole fox bake, camera 0
+    def shade(g):
+        return shade_volume(rows, scale, g["o"][0], params["rgb_mlp"], resolution=R,
+                            n_cascades=K, **acts)
+
     t = time.time()
-    vol = shade_volume(rows, scale, g0["o"][0], params["rgb_mlp"], resolution=R,
-                       n_cascades=K, **acts)
+    vol = shade(g0)
     torch.cuda.synchronize()
     vol_plain = shade_volume_plain(rows, scale, g0["o"][0], params["rgb_mlp"],
                                    resolution=R, n_cascades=K, **acts)
-    log(f"[K1] shade vs plain, volume {tuple(vol.shape)} ({time.time() - t:.1f} s)")
+    log(f"[K1] shade vs plain, volume {tuple(vol.shape)} strides {vol.stride()} "
+        f"({time.time() - t:.1f} s)")
+    check(vol.stride(2) == 1 and vol_plain.stride(2) == 1,
+          "K1: the volume is not channel-last")
     k1_err = compare("K1 volume", vol, vol_plain, **K1_TOL)
     check(float(vol[:, :, 3].float().max()) > 0, "K1: empty volume")
     del vol_plain
 
-    # -- 6. K2 against its plain version on the shaded fox volume
+    # -- 6. K2 against its plain version on the shaded fox volume: the five
+    # modes on each of the three views (each on the volume shaded for its own
+    # camera) and the generic path on a channel-planar copy
     near = max(0.05, eng.near_distance)
     min_t = eng.render_min_transmittance
     hi, wi = g0["eb"].shape[0], g0["ec"].shape[0]
-    view = {0: vol, 1: vol.permute(0, 3, 2, 1, 4), 2: vol.permute(0, 4, 2, 1, 3)}[g0["axis"]]
     gen = torch.Generator(device=dev).manual_seed(0)
     t_stop = 0.5 + 2.5 * torch.rand((hi, wi), generator=gen, device=dev)
-    modes = {
-        "nearest": dict(),
-        "linear": dict(interp="bilinear"),
-        "phase": dict(phase=0.25),
-        "t_stop": dict(t_stop=t_stop),
-        "data_flip": dict(data_flip=not g0["flip"]),
-    }
     k2_err = 0.0
-    for mode, kw in modes.items():
-        kw = dict(kw)
-        kw.setdefault("data_flip", g0["flip"])
-        args = (view, g0["o_c"], g0["eb"], g0["ec"], near, min_t)
-        t = time.time()
-        got = sweep_composite_kernel(*args, resolution=R, n_cascades=K, **kw)
-        torch.cuda.synchronize()
-        want = sweep_composite_plain(*args, resolution=R, n_cascades=K, **kw)
-        log(f"[K2] {mode} at Hi={hi} Wi={wi} ({time.time() - t:.1f} s)")
+    k2_axis_ms, k2_planar_ms, k2_spread = {}, {}, {}
+
+    def hold(tag, got, want):
+        worst = 0.0
         for name, a, b in zip(("C", "opacity", "T", "depth_t"), got, want):
-            k2_err = max(k2_err, compare(f"K2 {mode} {name}", a, b.contiguous(), **K2_TOL))
-        check(float(got[1].max()) > 0.1, f"K2 {mode}: nothing composited")
+            worst = max(worst, compare(f"K2 {tag} {name}", a, b.contiguous(), **K2_TOL))
+        check(float(got[1].max()) > 0.1, f"K2 {tag}: nothing composited")
+        return worst
+
+    for g in geo:
+        axis = g["axis"]
+        v_vol = vol if g is g0 else shade(g)
+        view = axis_view(v_vol, axis)
+        check(view.stride(2) == 1, "K2: the view is not of channel-last storage")
+        args = (view, g["o_c"], g["eb"], g["ec"], near, min_t)
+        modes = {
+            "nearest": dict(),
+            "linear": dict(interp="bilinear"),
+            "phase": dict(phase=0.25),
+            "t_stop": dict(t_stop=t_stop),
+            "data_flip": dict(data_flip=not g["flip"]),
+        }
+        for mode, kw in modes.items():
+            kw = dict(kw)
+            kw.setdefault("data_flip", g["flip"])
+            t = time.time()
+            got = sweep_composite_kernel(*args, resolution=R, n_cascades=K, **kw)
+            torch.cuda.synchronize()
+            want = sweep_composite_plain(*args, resolution=R, n_cascades=K, **kw)
+            log(f"[K2] axis {axis} {mode} at Hi={hi} Wi={wi} ({time.time() - t:.1f} s)")
+            k2_err = max(k2_err, hold(f"axis {axis} {mode}", got, want))
+            if mode == "nearest":
+                want_nearest = want
+        kw = dict(resolution=R, n_cascades=K, data_flip=g["flip"])
+        times = [cuda_ms(lambda: sweep_composite_kernel(*args, **kw), 1, warmup=1)
+                 for _ in range(10)]
+        k2_axis_ms[axis] = statistics.median(times)
+        k2_spread[axis] = (min(times), max(times))
+        # the generic path: the same values in a channel-planar volume
+        planar = view.contiguous()
+        check(planar.stride(2) != 1, "the channel-planar copy is channel-last")
+        got = sweep_composite_kernel(planar, *args[1:], **kw)
+        torch.cuda.synchronize()
+        k2_err = max(k2_err, hold(f"axis {axis} channel-planar", got, want_nearest))
+        k2_planar_ms[axis] = cuda_ms(lambda: sweep_composite_kernel(planar, *args[1:], **kw), 10)
+        del planar
+        log(f"[K2] axis {axis}: {k2_axis_ms[axis]:.4f} ms (ten timings "
+            f"{k2_spread[axis][0]:.4f}-{k2_spread[axis][1]:.4f}); channel-planar copy "
+            f"{k2_planar_ms[axis]:.4f} ms")
+        del v_vol, view, args, got, want, want_nearest
+    view = axis_view(vol, g0["axis"])
 
     # -- 7. the main path: Session.render on the kernels, counts from 0
     shade_volume.launches = 0
@@ -382,30 +433,35 @@ def main() -> int:
         check(db > QUALITY_MIN_DB, f"view {i}: sweep vs live PSNR {db:.2f} dB")
 
     # -- 8. timings: frames (host clock around synchronised frames) and kernels
-    def frame():
-        sess.render(WIDTH, HEIGHT, cams[0], FOCAL, spp=1, renderer="sweep")
+    def frame(i=0):
+        sess.render(WIDTH, HEIGHT, cams[i], FOCAL, spp=1, renderer="sweep")
         torch.cuda.synchronize()
 
-    for _ in range(2):
-        frame()
-    frame_ms = []
-    for _ in range(7):
-        t = time.perf_counter()
-        frame()
-        frame_ms.append(1e3 * (time.perf_counter() - t))
+    frame_ms_by_view = []
+    for i in range(len(cams)):
+        for _ in range(2):
+            frame(i)
+        ms = []
+        for _ in range(7):
+            t = time.perf_counter()
+            frame(i)
+            ms.append(1e3 * (time.perf_counter() - t))
+        frame_ms_by_view.append(ms)
+    frame_ms = frame_ms_by_view[0]
     args0 = (view, g0["o_c"], g0["eb"], g0["ec"], near, min_t)
-    k1_ms = cuda_ms(lambda: shade_volume(rows, scale, g0["o"][0], params["rgb_mlp"],
-                                         resolution=R, n_cascades=K, **acts), 10)
-    k2_ms = cuda_ms(lambda: sweep_composite_kernel(*args0, resolution=R, n_cascades=K,
-                                                   data_flip=g0["flip"]), 10)
+    k1_times = [cuda_ms(lambda: shade(g0), 1, warmup=1) for _ in range(10)]
+    k1_ms = statistics.median(k1_times)
+    k2_ms = k2_axis_ms[g0["axis"]]
     k1_plain_ms = cuda_ms(lambda: shade_volume_plain(
         rows, scale, g0["o"][0], params["rgb_mlp"], resolution=R, n_cascades=K, **acts), 2)
     k2_plain_ms = cuda_ms(lambda: sweep_composite_plain(
         *args0, resolution=R, n_cascades=K, data_flip=g0["flip"]), 2)
-    log(f"[time] frame 1280x720 spp1: median {statistics.median(frame_ms):.2f} ms "
-        f"(runs {[round(x, 2) for x in frame_ms]})")
-    log(f"[time] K1 shade {k1_ms:.3f} ms (plain {k1_plain_ms:.1f} ms); "
-        f"K2 sweep {k2_ms:.3f} ms (plain {k2_plain_ms:.1f} ms)")
+    for i, ms in enumerate(frame_ms_by_view):
+        log(f"[time] frame 1280x720 spp1 view {i} (axis {axes[i][0]}): median "
+            f"{statistics.median(ms):.2f} ms (runs {[round(x, 2) for x in ms]})")
+    log(f"[time] K1 shade {k1_ms:.3f} ms (ten timings {min(k1_times):.3f}-{max(k1_times):.3f}; "
+        f"plain {k1_plain_ms:.1f} ms); K2 sweep axis {g0['axis']} {k2_ms:.3f} ms "
+        f"(plain {k2_plain_ms:.1f} ms)")
 
     # bounds from this run's inputs: bytes at the HBM rate, operations at the
     # peak of their type; data-dependent work counted as this run needs it.
@@ -435,8 +491,10 @@ def main() -> int:
         f"{k2_samples} samples, "
         f"{k2_ops / 1e9:.1f} GFLOP -> {k2_bound:.3f} ms ({k2_by})")
     frame_med = statistics.median(frame_ms)
-    log(f"[where] frame {frame_med:.2f} ms = K1 {k1_ms:.2f} + K2 {k2_ms:.2f} + rest "
-        f"{frame_med - k1_ms - k2_ms:.2f} ms")
+    for i, ms in enumerate(frame_ms_by_view):
+        med, k2a = statistics.median(ms), k2_axis_ms[axes[i][0]]
+        log(f"[where] view {i} (axis {axes[i][0]}): frame {med:.2f} ms = K1 {k1_ms:.2f} + K2 "
+            f"{k2a:.2f} + rest {med - k1_ms - k2a:.2f} ms")
     log(f"[done] {time.time() - t_all:.1f} s")
 
     kernels = [
@@ -447,7 +505,8 @@ def main() -> int:
         {"name": "sweep", "route": "cuda", "source": "sienerf_torch/csrc/sweep.cu",
          "replaces": REPLACES["sweep"], "launches": launches["sweep"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
+         "ms_by_axis": k2_axis_ms, "channel_planar_ms_by_axis": k2_planar_ms},
     ]
     for name, r in (("gather_rows", g1_main), ("gather_small", g2_main)):
         kernels.append(
@@ -456,7 +515,9 @@ def main() -> int:
              "max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "library_ms": r["library_ms"], "shape": r["shape"]})
-    log(json.dumps({"frame_ms": frame_med, "bake_s": bake_s, "live_frame_ms": live_med,
+    log(json.dumps({"frame_ms": frame_med,
+                    "frame_ms_by_view": [statistics.median(ms) for ms in frame_ms_by_view],
+                    "bake_s": bake_s, "live_frame_ms": live_med,
                     "live_rounds": live_stats["rounds"],
                     "live_big_tile_ms": statistics.median(big_ms),
                     "sweep_vs_live_psnr_db": [q[0] for q in quality],

@@ -12,27 +12,90 @@
 //   X     = bf16([SH16; raw16])            32 -> 64 -> 64 -> 3 ReLU MLP,
 //           f32 accumulation, bf16 rounding between layers
 //   out   = bf16([rgb_act(.) * sigma; sigma])
-// written to the unpadded axis-0 volume (K, R+1, 4, R+1, R+1) bf16:
-// slab i of cascade m, channel c, in-plane (j, k).  The in-plane (j, k)
-// come from integer division of the flat vertex id; the TPU kernel's 384
-// lane padding and field-major plane table are gone: the kernel reads the
-// (K*(R+1)^3, 16) int16 rows directly, 32 bytes per thread.  The sweep
-// kernel takes the volume for camera axes 1 and 2 through strides (a
-// permuted view), so no transpose is materialised.
+// written channel-last: storage (K, R+1, R+1, R+1, 4) bf16, the four
+// channels of vertex v at bytes [8v, 8v+8), in the flat vertex order of the
+// rows.  Callers see the permuted view (K, R+1, 4, R+1, R+1); the sweep
+// kernel reads a sample as one 8-byte load and takes camera axes 1 and 2
+// through strides.
 //
-// Bound on the H100 (fox bake, R=256, K=3: 50.9 M vertices): 1.63 GB of
-// rows read and 0.41 GB written, about 0.6 ms at 3.35 TB/s; the MLP is
-// 0.65 TFLOP, about 0.7 ms on the bf16 tensor cores, so the two bounds are
-// close.  This first version is neither: one thread per vertex runs the
-// MLP on the f32 CUDA cores (67 TFLOP/s peak, so about 10 ms at best),
-// with the three weight matrices transposed into shared memory as f32 and
-// read by every thread of a warp at once (a broadcast), four weights per
-// 16-byte read.  Every product of two bf16 values is exact in f32, so
-// fmaf and the reference's multiply-then-add give the same bits; only the
-// summation order differs.  Culled vertices (the sentinel) skip the MLP:
-// their output is zero either way, and they come in long runs along k, so
-// whole warps skip.  Blocks stride over the vertices, so each block loads
-// the weights once.  A tensor-core (mma/wgmma) MLP is the next step.
+// Bound on an H100 (fox bake, R=256, K=3: 50.9 M vertices, 26.7 M kept).
+// Bytes, counted as the algorithm needs them (chip_smoke.py's bound): a
+// kept vertex reads its 32-byte row, a culled one its 2-byte sentinel,
+// every vertex writes 8 bytes: 1.31 GB, 0.39 ms at 3.35 TB/s.  Counted as
+// the card moves them, in whole 32-byte sectors, a culled row costs 32
+// bytes too: 1.63 GB of rows + 0.41 GB written = 2.04 GB, 0.61 ms.  The MLP
+// is 12,672 flop a kept vertex, 0.338 TFLOP, 0.34 ms at the bf16 tensor
+// peak; so bytes bound the kernel, by either counting.
+//
+// Design.
+// - Kept vertices are compacted first.  On the fox bake the culled vertices
+//   do not come in long runs: of its 1,591,369 tiles of 32 consecutive
+//   vertices 1,169,499 hold a kept vertex and only 407,917 are full, so
+//   shading tile by tile would run the arithmetic below on 40 % more rows
+//   than are kept.  A warp walks its tiles (32 consecutive vertices, lane l
+//   loads row l: two 16-byte loads, 1 KB contiguous a warp), writes zeros
+//   for the culled ones and appends the kept ones (raw row, (m, i, j, k),
+//   vertex id; ballot + popc give the slot) to a ring of 64 rows in shared
+//   memory.  The (m, i, j, k) come from the tile's first vertex by carries
+//   (tiles may straddle planes and cascades, and R may be tiny; no division
+//   a tile).  Whenever the ring holds 32 rows the warp shades them as one
+//   full batch, lane l owning row l; a last, short batch drains the ring.
+// - The owner computes the direction, SH16 and the dequantised fields of
+//   its vertex in the plain version's f32 operation order (-fmad=false),
+//   rounds X to bf16 and writes one 64-byte row of a per-warp shared-memory
+//   tile (80-byte row pitch: 16-byte stores and ldmatrix are then free of
+//   bank conflicts).  No lane computes another lane's vertex, and no branch
+//   diverges on the lane.  Loading fragments straight from global memory
+//   (a quad sharing a vertex) was not taken: each lane of a quad would
+//   compute a different four of the sixteen SH functions, which diverges
+//   four ways, or the quad repeats the divisions and the square root four
+//   times.
+// - The MLP runs on the tensor cores: mma.sync.m16n8k16 bf16 with f32
+//   accumulation, vertices as the M rows, two m16 tiles a warp.  X comes
+//   from the shared tile with ldmatrix.x4.  The f32 accumulators of two
+//   neighbouring n8 tiles have the register layout of one k16 A fragment,
+//   so relu + bf16 rounding (cvt.rn.relu.bf16x2.f32) turns layer l's
+//   output into layer l+1's A operand in registers: hidden activations
+//   never touch shared or device memory.  Each layer runs in two halves
+//   of 32 outputs to bound the live accumulators (32 f32 a half), and
+//   layer 3 (64 -> 3, padded to one n8 tile) accumulates as layer 2's
+//   halves arrive.
+// - Weights: bf16, packed on the host in fragment order (ops/shade.py::
+//   pack_shade_weights): for each (k16, pair of n8) tile the 16 bytes lane
+//   l needs, so a B fragment pair is one conflict-free 16-byte shared
+//   load.  13 KB a block instead of 24.8 KB of f32.  Each B fragment
+//   serves both m16 tiles.  A product of two bf16 values is exact in f32;
+//   only the summation order inside the tensor core differs from the
+//   plain version.
+// - Streaming: persistent warps (blocks = SMs x resident blocks, 4 blocks
+//   of 4 warps an SM at 128 registers) walk the tiles with a stride, so
+//   that a culled region is spread over all warps.  Each lane loads its
+//   row directly where it appends it.  Loading the next tile's rows a tile
+//   ahead, into registers or as an L2 prefetch, changed nothing measurable
+//   (the other warps of the SM cover the latency), and rows are consumed
+//   once, by the lane that loads them, so a cp.async ring would only add
+//   a copy: neither is in the kernel.
+// - Output: the final accumulator goes through the warp's shared tile to
+//   the owner, which applies the activation, premultiplies and stores 8
+//   bytes at its vertex (a batch's vertices ascend, mostly in runs).
+// - Registers: the fragments of one hidden layer (32) and the 32
+//   accumulators of a half layer are live together, so the kernel sits at
+//   the 128 registers that 16 warps an SM allow.  The loop's constants
+//   (camera, strides) are re-read from shared memory where used, and the
+//   owner reads its vertex id and sigma's field from the ring again after
+//   the MLP, which keeps ptxas free of spills.
+//
+// Where it stands (PERF.md has the numbers): about 5x the bytes bound.
+// With the MLP compiled out the rest still takes a large part of the time,
+// a prefetch does not move it and fewer independent mma chains slow it: it
+// is bound by latency at 16 warps an SM
+// (the f32 divisions and square root of the direction, then dependent mma
+// chains), not by the tensor pipe or by memory.  The same chaining through wgmma
+// (A from registers, B through shared-memory descriptors) agreed with the
+// plain version and was slower, since a warpgroup then waits on each small
+// group of products.  The next step is to split the roles: light warps
+// that prepare X tiles at high occupancy, and MLP warpgroups that consume
+// them from a shared-memory ring.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // (sienerf_torch/ops/cuda_lib.py).  -fmad=false keeps the position and
@@ -44,17 +107,23 @@
 
 namespace {
 
-constexpr int NF = 16;    // baked fields per vertex
-constexpr int NIN = 32;   // SH16 + raw16
-constexpr int NH = 64;    // hidden width
-constexpr int NOUT = 3;
-constexpr int BLOCK = 256;
+constexpr int NF = 16;         // baked fields per vertex
+// 4 warps x 4 blocks an SM; 2 x 8 and 4 x 3 measured within the spread of
+// repeated timings, and 8 warps a block would need 57 KB of static shared
+// memory.
+constexpr int WARPS = 4;
+constexpr int BLOCK = 32 * WARPS;
+constexpr int MIN_BLOCKS = 4;  // blocks an SM that the register budget allows
+constexpr int TILE = 32;       // vertices a warp shades at once
+constexpr int XPITCH = 20;     // 32-bit words per row of the X tile (80 bytes)
+constexpr int MAX_CASCADES = 8;
+// packed weights, in 32-bit words (two bf16 each)
+constexpr int W1_WORDS = 2 * 4 * 32 * 4;   // 2 k16 x 4 n8-pairs x 32 lanes x 4
+constexpr int W2_WORDS = 4 * 4 * 32 * 4;
+constexpr int W3_WORDS = 4 * 32 * 2;       // 4 k16 x one n8 tile x 32 lanes x 2
+constexpr int W_WORDS = W1_WORDS + W2_WORDS + W3_WORDS;
 
 enum { ACT_NONE = 0, ACT_RELU = 1, ACT_LOGISTIC = 2, ACT_EXPONENTIAL = 3 };
-
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 __device__ __forceinline__ float activation(float x, int act, float clamp) {
   if (act == ACT_EXPONENTIAL) return expf(fminf(fmaxf(x, -clamp), clamp));
@@ -63,61 +132,227 @@ __device__ __forceinline__ float activation(float x, int act, float clamp) {
   return x;
 }
 
-__global__ void __launch_bounds__(BLOCK) shade_kernel(
+// two f32 -> one word of two bf16 (round to nearest even), `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// the same with relu first (relu and rounding commute)
+__device__ __forceinline__ uint32_t pack_relu_bf16(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// D(16x8, f32) += A(16x16, bf16, row) * B(16x8, bf16, col)
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const uint32_t* smem) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// One hidden layer for two m16 tiles, relu(h_in @ W), 32 outputs at a time.
+// `a_in[mt][kt]` are the KT k16 fragments of the input, `wp` the layer's
+// packed weights.  The accumulators of n8 tiles (2t, 2t+1) are the A
+// fragment of k16 tile t of the next layer: `half_done(nh, frag)` gets the
+// two fragments (k16 tiles 2nh, 2nh+1) of both m16 tiles.  32 accumulators
+// are live at a time, in 8 independent mma chains.  (16 at a time in 4
+// chains was slower: the chains hide the tensor pipe's latency.)
+template <int KT, typename F>
+__device__ __forceinline__ void hidden_layer(const uint32_t (&a_in)[2][KT][4],
+                                             const uint32_t* __restrict__ wp, int lane,
+                                             F half_done) {
+#pragma unroll
+  for (int nh = 0; nh < 2; ++nh) {
+    float acc[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        const uint4 b = *reinterpret_cast<const uint4*>(
+            wp + ((kt * 4 + nh * 2 + np) * 32 + lane) * 4);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_16816(acc[mt][2 * np], a_in[mt][kt], b.x, b.y);
+          mma_16816(acc[mt][2 * np + 1], a_in[mt][kt], b.z, b.w);
+        }
+      }
+    }
+    uint32_t frag[2][2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        frag[mt][t][0] = pack_relu_bf16(acc[mt][2 * t][0], acc[mt][2 * t][1]);
+        frag[mt][t][1] = pack_relu_bf16(acc[mt][2 * t][2], acc[mt][2 * t][3]);
+        frag[mt][t][2] = pack_relu_bf16(acc[mt][2 * t + 1][0], acc[mt][2 * t + 1][1]);
+        frag[mt][t][3] = pack_relu_bf16(acc[mt][2 * t + 1][2], acc[mt][2 * t + 1][3]);
+      }
+    half_done(nh, frag);
+  }
+}
+
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) shade_kernel(
     const int16_t* __restrict__ rows, const float* __restrict__ scale,
-    const float* __restrict__ cam, const __nv_bfloat16* __restrict__ w1,
-    const __nv_bfloat16* __restrict__ w2, const __nv_bfloat16* __restrict__ w3,
-    __nv_bfloat16* __restrict__ out, int R, long long n_vert, int dact,
-    int ract) {
-  // weights transposed to [out][in], so one output's inputs are contiguous
-  __shared__ __align__(16) float s_w1[NH * NIN];
-  __shared__ __align__(16) float s_w2[NH * NH];
-  __shared__ __align__(16) float s_w3[NOUT * NH];
-  for (int t = threadIdx.x; t < NH * NIN; t += blockDim.x)
-    s_w1[t] = __bfloat162float(w1[(t % NIN) * NH + t / NIN]);
-  for (int t = threadIdx.x; t < NH * NH; t += blockDim.x)
-    s_w2[t] = __bfloat162float(w2[(t % NH) * NH + t / NH]);
-  for (int t = threadIdx.x; t < NOUT * NH; t += blockDim.x)
-    s_w3[t] = __bfloat162float(w3[(t % NH) * NOUT + t / NH]);
+    const float* __restrict__ cam, const uint32_t* __restrict__ wpacked,
+    uint2* __restrict__ out, int R, int K, long long n_vert, int dact, int ract) {
+  __shared__ __align__(16) uint32_t s_w[W_WORDS];
+  __shared__ __align__(16) uint32_t s_x[WARPS][TILE * XPITCH];
+  __shared__ __align__(16) uint4 s_ring_raw[WARPS][2 * 64];
+  __shared__ __align__(8) uint2 s_ring_pos[WARPS][64];
+  __shared__ __align__(8) long long s_ring_v[WARPS][64];
+  __shared__ __align__(16) float s_scale[MAX_CASCADES * NF];
+  for (int t = threadIdx.x; t < W_WORDS / 4; t += BLOCK)
+    reinterpret_cast<uint4*>(s_w)[t] = __ldg(reinterpret_cast<const uint4*>(wpacked) + t);
+  for (int t = threadIdx.x; t < K * NF; t += BLOCK) s_scale[t] = scale[t];
+  // Loop constants live in shared memory and are read where they are used
+  // (volatile, so that they hold no register across the MLP): the camera,
+  // 1/(R+1), and the warps' stride as (planes' offset, planes, cascades).
+  __shared__ float s_cam[4];
+  __shared__ uint32_t s_step[3];
+  if (threadIdx.x == 0) {
+    const uint32_t Rv0 = R + 1, plane0 = Rv0 * Rv0;
+    const long long step = (long long)gridDim.x * WARPS * TILE;
+    const uint32_t step_p = (uint32_t)(step / plane0);
+    s_cam[0] = cam[0];
+    s_cam[1] = cam[1];
+    s_cam[2] = cam[2];
+    s_cam[3] = 1.f / (float)Rv0;
+    s_step[0] = (uint32_t)(step % plane0);
+    s_step[1] = step_p % Rv0;
+    s_step[2] = step_p / Rv0;
+  }
   __syncthreads();
+  const volatile float* v_cam = s_cam;
+  const volatile uint32_t* v_step = s_step;
 
-  const int Rv = R + 1;
-  const long long plane = (long long)Rv * Rv;
-  const float cx = cam[0], cy = cam[1], cz = cam[2];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  uint32_t* xs = s_x[warp];
+  float* ys = reinterpret_cast<float*>(xs);
+  const uint32_t Rv = R + 1, plane = Rv * Rv;
 
-  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < n_vert;
-       v += (long long)gridDim.x * blockDim.x) {
-    const int k = (int)(v % Rv);
-    const int j = (int)((v / Rv) % Rv);
-    const long long p = v / plane;  // global plane m*Rv + i
-    const int i = (int)(p % Rv);
-    const int m = (int)(p / Rv);
-    __nv_bfloat16* o = out + p * 4 * plane + (long long)j * Rv + k;
+  // tiles and warps are counted in 32 bits (the launch function checks)
+  const int n_tiles = (int)((n_vert + TILE - 1) / TILE);
+  const int n_warps = gridDim.x * WARPS;
+  int tile = blockIdx.x * WARPS + warp;
+  // The tile's first vertex as (cascade m0, plane i0, offset r0 in the
+  // plane), advanced by the warps' stride with carries: no division per
+  // tile.
+  const long long v_first = (long long)tile * TILE;
+  uint32_t r0 = (uint32_t)(v_first % plane);
+  uint32_t i0 = (uint32_t)(v_first / plane % Rv), m0 = (uint32_t)(v_first / plane / Rv);
 
-    const uint4* src = reinterpret_cast<const uint4*>(rows + v * NF);
-    const uint4 qa = __ldg(src), qb = __ldg(src + 1);
-    const uint32_t words[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
-    if ((int16_t)(words[0] & 0xFFFFu) == -32768) {
-      const __nv_bfloat16 z = __float2bfloat16_rn(0.f);
-      o[0] = z; o[plane] = z; o[2 * plane] = z; o[3 * plane] = z;
-      continue;
+  // The ring of this warp's kept vertices: raw row, (m << 16 | i, j << 16 | k)
+  // and vertex id of up to 64 of them.  A batch is the 32 rows from `head`
+  // (0 or 32); tiles append behind it.
+  uint4* ring_raw = s_ring_raw[warp];
+  uint2* ring_pos = s_ring_pos[warp];
+  long long* ring_v = s_ring_v[warp];
+  int head = 0, count = 0;
+
+  for (;;) {
+    const bool have_tile = tile < n_tiles;
+    if (have_tile) {
+      if (r0 >= plane) {
+        r0 -= plane;
+        ++i0;
+      }
+      while (i0 >= Rv) {
+        i0 -= Rv;
+        ++m0;
+      }
+      const long long v = (long long)tile * TILE + lane;
+      const bool valid = v < n_vert;
+      const uint4* src = reinterpret_cast<const uint4*>(rows + (valid ? v : n_vert - 1) * NF);
+      const uint4 qa = __ldg(src), qb = __ldg(src + 1);
+      const bool culled = !valid || (int16_t)(qa.x & 0xFFFFu) == -32768;
+      if (valid && culled) out[v] = make_uint2(0u, 0u);
+      const unsigned kept = __ballot_sync(0xFFFFFFFFu, !culled);
+      if (kept != 0u) {
+        // this lane's vertex (m, i, j, k): carries from the tile's first vertex
+        uint32_t jk = r0 + lane, i = i0, m = m0;
+        while (jk >= plane) {
+          jk -= plane;
+          ++i;
+        }
+        while (i >= Rv) {
+          i -= Rv;
+          ++m;
+        }
+        // j = jk / Rv through the reciprocal, off by at most one below 2^24
+        uint32_t j = plane < (1u << 24) ? (uint32_t)((float)jk * v_cam[3]) : jk / Rv;
+        int k = (int)(jk - j * Rv);
+        if (k < 0) {
+          k += (int)Rv;
+          --j;
+        } else if (k >= (int)Rv) {
+          k -= (int)Rv;
+          ++j;
+        }
+        if (!culled) {
+          const int slot = (head + count + __popc(kept & ((1u << lane) - 1u))) & 63;
+          ring_raw[2 * slot] = qa;
+          ring_raw[2 * slot + 1] = qb;
+          ring_pos[slot] = make_uint2((m << 16) | i, (j << 16) | (uint32_t)k);
+          ring_v[slot] = v;
+        }
+        count += __popc(kept);
+      }
+      tile += n_warps;
+      r0 += v_step[0];
+      i0 += v_step[1];
+      m0 += v_step[2];
+      if (count < 32) continue;
+    } else if (count == 0) {
+      break;
     }
 
-    float x[NIN];
-    const float* sc = scale + m * NF;
+    // -- shade a batch: lane l takes kept vertex l of the ring (the last
+    // batch may be short: its idle lanes shade the first row again)
+    __syncwarp();
+    const bool has = lane < count;
+    const int row = head + (has ? lane : 0);
+    const uint4 qa = ring_raw[2 * row], qb = ring_raw[2 * row + 1];
+    const uint2 pos = ring_pos[row];
+    const uint32_t m = pos.x >> 16, i = pos.x & 0xFFFFu, j = pos.y >> 16, k = pos.y & 0xFFFFu;
+    count -= count < 32 ? count : 32;
+    head ^= 32;
+
+    const uint32_t words[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+    const float* sc = s_scale + m * NF;
+    float raw[NF];
 #pragma unroll
     for (int w = 0; w < 8; ++w) {
-      x[16 + 2 * w] = (float)(int16_t)(words[w] & 0xFFFFu) * sc[2 * w];
-      x[17 + 2 * w] = (float)(int16_t)(words[w] >> 16) * sc[2 * w + 1];
+      raw[2 * w] = (float)(int16_t)(words[w] & 0xFFFFu) * sc[2 * w];
+      raw[2 * w + 1] = (float)(int16_t)(words[w] >> 16) * sc[2 * w + 1];
     }
-    const float sigma = activation(x[16], dact, 15.f);
 
     // vertex position, then the unit direction from the camera
-    const float side = (float)(1 << m);
+    const float side = (float)(1u << m);
     const float lo = 0.5f - 0.5f * side;
-    const float dx = ((float)i / (float)R * side + lo) - cx;
-    const float dy = ((float)j / (float)R * side + lo) - cy;
-    const float dz = ((float)k / (float)R * side + lo) - cz;
+    const float Rf = (float)R;
+    const float dx = ((float)i / Rf * side + lo) - v_cam[0];
+    const float dy = ((float)j / Rf * side + lo) - v_cam[1];
+    const float dz = ((float)k / Rf * side + lo) - v_cam[2];
     const float n = fmaxf(sqrtf(dx * dx + dy * dy + dz * dz), 1e-6f);
     // the reference warps the direction to [0,1]^3 and back (tcnn's SH input)
     const float X = ((dx / n + 1.f) * 0.5f) * 2.f - 1.f;
@@ -125,83 +360,134 @@ __global__ void __launch_bounds__(BLOCK) shade_kernel(
     const float Z = ((dz / n + 1.f) * 0.5f) * 2.f - 1.f;
     const float xy = X * Y, xz = X * Z, yz = Y * Z;
     const float x2 = X * X, y2 = Y * Y, z2 = Z * Z;
-    x[0] = 0.28209479177387814f;
-    x[1] = -0.48860251190291987f * Y;
-    x[2] = 0.48860251190291987f * Z;
-    x[3] = -0.48860251190291987f * X;
-    x[4] = 1.0925484305920792f * xy;
-    x[5] = -1.0925484305920792f * yz;
-    x[6] = 0.94617469575755997f * z2 - 0.31539156525251999f;
-    x[7] = -1.0925484305920792f * xz;
-    x[8] = 0.54627421529603959f * (x2 - y2);
-    x[9] = 0.59004358992664352f * Y * (-3.f * x2 + y2);
-    x[10] = 2.8906114426405538f * xy * Z;
-    x[11] = 0.45704579946446572f * Y * (1.f - 5.f * z2);
-    x[12] = 0.3731763325901154f * Z * (5.f * z2 - 3.f);
-    x[13] = 0.45704579946446572f * X * (1.f - 5.f * z2);
-    x[14] = 1.4453057213202769f * Z * (x2 - y2);
-    x[15] = 0.59004358992664352f * X * (-x2 + 3.f * y2);
-#pragma unroll
-    for (int t = 0; t < NIN; ++t) x[t] = bf16r(x[t]);
+    float sh[16];
+    sh[0] = 0.28209479177387814f;
+    sh[1] = -0.48860251190291987f * Y;
+    sh[2] = 0.48860251190291987f * Z;
+    sh[3] = -0.48860251190291987f * X;
+    sh[4] = 1.0925484305920792f * xy;
+    sh[5] = -1.0925484305920792f * yz;
+    sh[6] = 0.94617469575755997f * z2 - 0.31539156525251999f;
+    sh[7] = -1.0925484305920792f * xz;
+    sh[8] = 0.54627421529603959f * (x2 - y2);
+    sh[9] = 0.59004358992664352f * Y * (-3.f * x2 + y2);
+    sh[10] = 2.8906114426405538f * xy * Z;
+    sh[11] = 0.45704579946446572f * Y * (1.f - 5.f * z2);
+    sh[12] = 0.3731763325901154f * Z * (5.f * z2 - 3.f);
+    sh[13] = 0.45704579946446572f * X * (1.f - 5.f * z2);
+    sh[14] = 1.4453057213202769f * Z * (x2 - y2);
+    sh[15] = 0.59004358992664352f * X * (-x2 + 3.f * y2);
 
-    float h1[NH];
-#pragma unroll
-    for (int oo = 0; oo < NH; ++oo) {
-      const float4* wr = reinterpret_cast<const float4*>(s_w1 + oo * NIN);
-      float acc = 0.f;
-#pragma unroll
-      for (int q = 0; q < NIN / 4; ++q) {
-        const float4 w = wr[q];
-        acc = fmaf(x[4 * q], w.x, acc);
-        acc = fmaf(x[4 * q + 1], w.y, acc);
-        acc = fmaf(x[4 * q + 2], w.z, acc);
-        acc = fmaf(x[4 * q + 3], w.w, acc);
-      }
-      h1[oo] = bf16r(fmaxf(acc, 0.f));
-    }
+    // X row = bf16([SH16; raw16]) into the warp's tile
+    __syncwarp();  // the previous tile's output reads are done
+    uint4* xrow = reinterpret_cast<uint4*>(xs + lane * XPITCH);
+    xrow[0] = make_uint4(pack_bf16(sh[0], sh[1]), pack_bf16(sh[2], sh[3]),
+                         pack_bf16(sh[4], sh[5]), pack_bf16(sh[6], sh[7]));
+    xrow[1] = make_uint4(pack_bf16(sh[8], sh[9]), pack_bf16(sh[10], sh[11]),
+                         pack_bf16(sh[12], sh[13]), pack_bf16(sh[14], sh[15]));
+    xrow[2] = make_uint4(pack_bf16(raw[0], raw[1]), pack_bf16(raw[2], raw[3]),
+                         pack_bf16(raw[4], raw[5]), pack_bf16(raw[6], raw[7]));
+    xrow[3] = make_uint4(pack_bf16(raw[8], raw[9]), pack_bf16(raw[10], raw[11]),
+                         pack_bf16(raw[12], raw[13]), pack_bf16(raw[14], raw[15]));
+    __syncwarp();
 
-    // layer 2 one output at a time, folded straight into layer 3
-    float r0 = 0.f, r1 = 0.f, r2 = 0.f;
-#pragma unroll 2
-    for (int oo = 0; oo < NH; ++oo) {
-      const float4* wr = reinterpret_cast<const float4*>(s_w2 + oo * NH);
-      float acc = 0.f;
+    // A fragments of X: tile mt, k16 tile kt.  Lane l addresses row l%16 of
+    // the m16 tile, columns 8*(l/16).. of the k16 tile.
+    uint32_t xa[2][2][4];
 #pragma unroll
-      for (int q = 0; q < NH / 4; ++q) {
-        const float4 w = wr[q];
-        acc = fmaf(h1[4 * q], w.x, acc);
-        acc = fmaf(h1[4 * q + 1], w.y, acc);
-        acc = fmaf(h1[4 * q + 2], w.z, acc);
-        acc = fmaf(h1[4 * q + 3], w.w, acc);
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int kt = 0; kt < 2; ++kt)
+        ldmatrix_x4(xa[mt][kt],
+                    xs + (mt * 16 + (lane & 15)) * XPITCH + kt * 8 + (lane >> 4) * 4);
+
+    uint32_t h1[2][4][4];
+    hidden_layer<2>(xa, s_w, lane, [&](int nh, const uint32_t (&frag)[2][2][4]) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int r4 = 0; r4 < 4; ++r4) h1[mt][2 * nh + t][r4] = frag[mt][t][r4];
+    });
+    // layer 3 (one n8 tile) takes the k16 fragments of h2 as they are made
+    float oc[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int r4 = 0; r4 < 4; ++r4) oc[mt][r4] = 0.f;
+    const uint32_t* w3 = s_w + W1_WORDS + W2_WORDS;
+    hidden_layer<4>(h1, s_w + W1_WORDS, lane, [&](int nh, const uint32_t (&frag)[2][2][4]) {
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const uint2 b = *reinterpret_cast<const uint2*>(w3 + ((2 * nh + t) * 32 + lane) * 2);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma_16816(oc[mt], frag[mt][t], b.x, b.y);
       }
-      const float h2 = bf16r(fmaxf(acc, 0.f));
-      r0 = fmaf(h2, s_w3[oo], r0);
-      r1 = fmaf(h2, s_w3[NH + oo], r1);
-      r2 = fmaf(h2, s_w3[2 * NH + oo], r2);
+    });
+
+    // (r, g) sit in lanes tig == 0, (b, pad) in tig == 1, rows g and g + 8
+    // of each m16 tile: hand them to the owners through the shared tile
+    __syncwarp();  // every lane has its X fragments
+    if (tig < 2) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        *reinterpret_cast<float2*>(ys + (mt * 16 + g) * 4 + 2 * tig) =
+            make_float2(oc[mt][0], oc[mt][1]);
+        *reinterpret_cast<float2*>(ys + (mt * 16 + g + 8) * 4 + 2 * tig) =
+            make_float2(oc[mt][2], oc[mt][3]);
+      }
     }
-    o[0] = __float2bfloat16_rn(activation(r0, ract, 10.f) * sigma);
-    o[plane] = __float2bfloat16_rn(activation(r1, ract, 10.f) * sigma);
-    o[2 * plane] = __float2bfloat16_rn(activation(r2, ract, 10.f) * sigma);
-    o[3 * plane] = __float2bfloat16_rn(sigma);
+    __syncwarp();
+    const float4 rgb = *reinterpret_cast<const float4*>(ys + lane * 4);
+    if (has) {
+      // sigma from the ring row again (it stands until the next tile
+      // appends), so that nothing but `row` is held across the MLP
+      const float sigma = activation(
+          (float)(int16_t)(ring_raw[2 * row].x & 0xFFFFu) * s_scale[(ring_pos[row].x >> 16) * NF],
+          dact, 15.f);
+      uint2 o;
+      o.x = pack_bf16(activation(rgb.x, ract, 10.f) * sigma,
+                      activation(rgb.y, ract, 10.f) * sigma);
+      o.y = pack_bf16(activation(rgb.z, ract, 10.f) * sigma, sigma);
+      out[ring_v[row]] = o;
+    }
+    // the next tile may append into this batch's half of the ring
+    __syncwarp();
   }
 }
 
 }  // namespace
 
+extern "C" int shade_block_threads() { return BLOCK; }
+
+// Blocks of shade_kernel that fit one SM (registers and shared memory).
+extern "C" int shade_blocks_per_sm() {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, shade_kernel, BLOCK, 0) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+// rows (K*(R+1)^3, 16) int16, scale (K, 16) f32, cam (3,) f32, wpacked the
+// 13,312-byte fragment-order weights, out K*(R+1)^3 vertices x 4 bf16.
 extern "C" int shade_volume_launch(const void* rows, const void* scale,
-                                   const void* cam, const void* w1,
-                                   const void* w2, const void* w3, void* out,
+                                   const void* cam, const void* wpacked, void* out,
                                    int resolution, int n_cascades,
-                                   int density_act, int rgb_act, int n_blocks,
+                                   int density_act, int rgb_act, int n_sms,
                                    void* stream) {
+  if (n_cascades > MAX_CASCADES || resolution > 65534) return (int)cudaErrorInvalidValue;
   const long long Rv = resolution + 1;
   const long long n_vert = (long long)n_cascades * Rv * Rv * Rv;
-  long long want = (n_vert + BLOCK - 1) / BLOCK;
-  const int grid = (int)(want < n_blocks ? want : n_blocks);
+  static const int resident = shade_blocks_per_sm();  // asked once
+  const int per_sm = resident < 1 ? 1 : resident;
+  if ((n_vert + TILE - 1) / TILE > 0x7FFFFFFFLL - 65536) return (int)cudaErrorInvalidValue;
+  const long long want = (n_vert + BLOCK - 1) / BLOCK;
+  const long long have = (long long)n_sms * per_sm;
+  const int grid = (int)(want < have ? want : have);
   shade_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
       (const int16_t*)rows, (const float*)scale, (const float*)cam,
-      (const __nv_bfloat16*)w1, (const __nv_bfloat16*)w2,
-      (const __nv_bfloat16*)w3, (__nv_bfloat16*)out, resolution, n_vert,
+      (const uint32_t*)wpacked, (uint2*)out, resolution, n_cascades, n_vert,
       density_act, rgb_act);
   return (int)cudaGetLastError();
 }

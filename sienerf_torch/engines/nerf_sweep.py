@@ -3,12 +3,13 @@ the JAX package's engines/nerf_sweep.py).
 
 Per frame:
 1. K1 shades every lattice vertex once for this camera (ops/shade.py) into
-   a premultiplied (s*r, s*g, s*b, s) bf16 volume, slab-major along world
-   axis 0.
+   a premultiplied (s*r, s*g, s*b, s) bf16 volume, stored channel-last
+   (K, R+1, R+1, R+1, 4) and seen slab-major along world axis 0.
 2. The sweep axis (the dominant axis of the central view ray, picked on
-   the host) selects a permuted view of that volume; K2 (ops/sweep_kernel.py)
-   composites every cascade slab front to back onto a gnomonic
-   intermediate image, reading the flipped sweep as data plane R-j.
+   the host) selects a permuted view of that one volume; K2
+   (ops/sweep_kernel.py) composites every cascade slab front to back onto a
+   gnomonic intermediate image, reading a texel's four channels as 8
+   contiguous bytes and the flipped sweep as data plane R-j.
 3. One projective warp maps the intermediate image onto the pixels, and
    the epilogue adds the background.
 
@@ -50,6 +51,13 @@ def prepare_rgba_volume(engine, params, rows, scale, cam_origin,
                        rgb_act=engine.net.rgb_activation,
                        sh_degree=engine.net.sh_degree)
     return vol.reshape(K, Rv, Rv, Rv, 4)
+
+
+def axis_view(vol: torch.Tensor, axis: int) -> torch.Tensor:
+    """The shade kernel's (K, i, 4, j, k) volume as the sweep-major view
+    (K, S_a, 4, S_b, S_c) for the sweep along `axis`: strides only, no
+    transposed copy."""
+    return {0: vol, 1: vol.permute(0, 3, 2, 1, 4), 2: vol.permute(0, 4, 2, 1, 3)}[axis]
 
 
 def _pick_axis(camera_matrix, focal_length, width, height, screen_center=(0.5, 0.5)):
@@ -164,10 +172,8 @@ def render_frame_sweep(engine, params, grid, meta, camera_matrix, focal_length, 
         vol = shade_volume(rows, scale, o[0], params["rgb_mlp"], resolution=R,
                            n_cascades=K, density_act=engine.net.density_activation,
                            rgb_act=engine.net.rgb_activation)
-        # (K, i, 4, j, k) -> sweep-major views; the kernel reads strides
-        view = {0: vol, 1: vol.permute(0, 3, 2, 1, 4), 2: vol.permute(0, 4, 2, 1, 3)}[axis]
         C, op, T, bt = sweep_composite_kernel(
-            view, o_c, eb, ec, near, min_t, phase=axis_phase, resolution=R,
+            axis_view(vol, axis), o_c, eb, ec, near, min_t, phase=axis_phase, resolution=R,
             n_cascades=K, interp=interp, data_flip=flip)
     else:
         vol = prepare_rgba_volume(engine, params, rows, scale, o[0], R, K)

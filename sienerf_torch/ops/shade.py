@@ -6,13 +6,16 @@ the JAX package's engines/nerf_sweep.py::_shade_planes (its reference, which is
 the plain version here).  Every vertex of the K*(R+1)^3 bake is decoded,
 its colour MLP is run once with the vertex's own direction from the camera
 (exact for primary rays), and the premultiplied [s*r, s*g, s*b, s] bf16
-value is stored.  The kernel is `csrc/shade.cu`; its source note gives the
-design and the bound.
+value is stored channel-last: the storage is (K, R+1, R+1, R+1, 4), the four
+channels of a vertex side by side, and callers see it as the permuted view
+(K, R+1, 4, R+1, R+1).  The kernel is `csrc/shade.cu` (the MLP on the
+tensor cores); its source note gives the design and the bound.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,6 +37,80 @@ KERNEL_RGB_MLP = MLPConfig(n_input_dims=32, n_output_dims=3, n_neurons=64,
                            output_activation="None")
 # planes per step of the plain shade (~1 M vertices at R=256)
 _PLANE_CHUNK = 16
+_MAX_CASCADES = 8  # the kernel keeps the (K, 16) scales in shared memory
+
+
+@functools.lru_cache(maxsize=8)
+def _pack_index(device: torch.device) -> torch.Tensor:
+    """For every bf16 value of the packed weights, its position in
+    cat([W1.flatten(), W2.flatten(), W3.flatten(), [0]]), as an index tensor
+    on `device` (built once per device): the last slot is the zero that pads
+    W3 from 3 to 8 outputs.  W1 and W2 are stored in (k16, pair of n8) tiles
+    of 32 lanes x 8 values, W3 in k16 tiles of 32 lanes x 4.
+
+    The layout is the B-fragment order of mma.m16n8k16 (B is k x n,
+    "col"): lane l = 4g + t of the (k16 tile kt, n8 tile nt) fragment holds
+    B[16kt + 2t + {0, 1}, 8nt + g] and B[16kt + 2t + 8 + {0, 1}, 8nt + g].
+    W1 and W2 store n8 tiles in pairs, so a lane's 8 values (16 bytes) feed
+    two mma instructions."""
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    # k offsets of a lane's four values within a k16 tile
+    koff = torch.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9], dim=1)  # (32, 4)
+    parts, base = [], 0
+    for n_in, n_out in ((32, 64), (64, 64)):
+        kt = torch.arange(n_in // 16)[:, None, None, None, None]
+        npair = torch.arange(n_out // 16)[None, :, None, None, None]
+        half = torch.arange(2)[None, None, None, :, None]
+        k = 16 * kt + koff[None, None, :, None, :]
+        n = 16 * npair + 8 * half + g[None, None, :, None, None]
+        parts.append((base + k * n_out + n).reshape(-1))
+        base += n_in * n_out
+    kt = torch.arange(4)[:, None, None]
+    k = 16 * kt + koff[None]                       # (4, 32, 4)
+    n = g[None, :, None].expand(4, 32, 4)
+    zero = base + 64 * 3
+    parts.append(torch.where(n < 3, base + k * 3 + n, zero).reshape(-1))
+    return torch.cat(parts).to(device)
+
+
+def pack_shade_weights(rgb_weights) -> torch.Tensor:
+    """Colour-MLP weights [(32, 64), (64, 64), (64, 3)] -> the kernel's
+    (6656,) bf16 fragment-order buffer (13,312 bytes)."""
+    dev = rgb_weights[0].device
+    flat = torch.cat([w.to(torch.bfloat16).reshape(-1) for w in rgb_weights]
+                     + [torch.zeros(1, dtype=torch.bfloat16, device=dev)])
+    return flat[_pack_index(dev)].contiguous()
+
+
+# the weights last packed for the kernel and their versions: a frame loop
+# shades with the same tensors every time
+_packed: dict = {"weights": (), "versions": (), "buffer": None}
+
+
+def _packed_for(rgb_weights, device: torch.device) -> torch.Tensor:
+    """pack_shade_weights on `device`, done again only when the weight
+    tensors are other objects than last time, were written in place since,
+    or were packed for another device."""
+    versions = tuple(w._version for w in rgb_weights)
+    same = (len(_packed["weights"]) == len(rgb_weights)
+            and all(a is b for a, b in zip(_packed["weights"], rgb_weights))
+            and _packed["versions"] == versions
+            and _packed["buffer"].device == device)
+    if not same:
+        _packed.update(weights=tuple(rgb_weights), versions=versions,
+                       buffer=pack_shade_weights([w.to(device) for w in rgb_weights]))
+    return _packed["buffer"]
+
+
+def unpack_shade_weights(packed: torch.Tensor) -> list[torch.Tensor]:
+    """The inverse of pack_shade_weights -> bf16 [(32, 64), (64, 64), (64, 3)]."""
+    idx = _pack_index(packed.device)
+    flat = torch.zeros(32 * 64 + 64 * 64 + 64 * 3 + 1, dtype=packed.dtype,
+                       device=packed.device)
+    flat[idx] = packed
+    w1, w2, w3 = flat[:-1].split([32 * 64, 64 * 64, 64 * 3])
+    return [w1.reshape(32, 64), w2.reshape(64, 64), w3.reshape(64, 3)]
 
 
 @torch.no_grad()
@@ -77,7 +154,8 @@ def shade_volume_plain(rows, scale, cam_origin, rgb_weights, *, resolution: int,
                        n_cascades: int, density_act: NerfActivation,
                        rgb_act: NerfActivation) -> torch.Tensor:
     """The plain version in the kernel's output layout: (K*(R+1)^3, 16) int16
-    rows -> axis-0 volume (K, R+1, 4, R+1, R+1) bf16."""
+    rows -> axis-0 volume (K, R+1, 4, R+1, R+1) bf16, a view of channel-last
+    storage (channel stride 1)."""
     R, K = resolution, n_cascades
     Rv = R + 1
     dev = rows.device
@@ -87,7 +165,7 @@ def shade_volume_plain(rows, scale, cam_origin, rgb_weights, *, resolution: int,
     vol = shade_planes(planes, casc, iplane, scale, cam_origin, rgb_weights,
                        KERNEL_RGB_MLP, resolution=R, density_act=density_act,
                        rgb_act=rgb_act)
-    return vol.reshape(K, Rv, Rv, Rv, 4).permute(0, 1, 4, 2, 3).contiguous()
+    return vol.reshape(K, Rv, Rv, Rv, 4).permute(0, 1, 4, 2, 3)
 
 
 def shade_volume(rows, scale, cam_origin, rgb_weights, *, resolution: int,
@@ -95,8 +173,9 @@ def shade_volume(rows, scale, cam_origin, rgb_weights, *, resolution: int,
                  rgb_act: NerfActivation) -> torch.Tensor:
     """K1: (K*(R+1)^3, 16) int16 rows, (K, 16) f32 scale, (3,) f32 camera
     origin, colour-MLP weights [(32, 64), (64, 64), (64, 3)] ->
-    (K, R+1, 4, R+1, R+1) bf16 axis-0 volume.  Launches the CUDA kernel
-    for CUDA tensors; tensors on the CPU take the plain version."""
+    (K, R+1, 4, R+1, R+1) bf16 axis-0 volume, a view of channel-last
+    storage.  Launches the CUDA kernel for CUDA tensors; tensors on the CPU
+    take the plain version."""
     kw = dict(resolution=resolution, n_cascades=n_cascades,
               density_act=density_act, rgb_act=rgb_act)
     if rows.device.type == "cpu":
@@ -116,27 +195,40 @@ def shade_volume(rows, scale, cam_origin, rgb_weights, *, resolution: int,
                          f"MLP, got {shapes}")
     if density_act not in _ACT_CODE or rgb_act not in _ACT_CODE:
         raise ValueError("shade_volume: unsupported activation")
+    if K > _MAX_CASCADES:
+        raise ValueError(f"shade_volume: at most {_MAX_CASCADES} cascades, got {K}")
     scale = scale.to(device=dev, dtype=torch.float32).contiguous()
     if tuple(scale.shape) != (K, 16):
         raise ValueError(f"shade_volume: scale must be ({K}, 16)")
     cam = cam_origin.to(device=dev, dtype=torch.float32).contiguous()
-    ws = [w.to(device=dev, dtype=torch.bfloat16).contiguous() for w in rgb_weights]
-    out = torch.empty((K, Rv, 4, Rv, Rv), dtype=torch.bfloat16, device=dev)
+    packed = _packed_for(rgb_weights, dev)
+    out = torch.empty((K, Rv, Rv, Rv, 4), dtype=torch.bfloat16, device=dev)
 
     lib = cuda_lib.load("shade")
     fn = lib.shade_volume_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    n_blocks = torch.cuda.get_device_properties(dev).multi_processor_count * 8
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(rows.data_ptr(), scale.data_ptr(), cam.data_ptr(),
-                  ws[0].data_ptr(), ws[1].data_ptr(), ws[2].data_ptr(),
-                  out.data_ptr(), R, K, _ACT_CODE[density_act],
-                  _ACT_CODE[rgb_act], n_blocks, stream)
+                  packed.data_ptr(), out.data_ptr(), R, K, _ACT_CODE[density_act],
+                  _ACT_CODE[rgb_act], n_sms, stream)
     cuda_lib.check(lib, "shade", code)
     shade_volume.launches += 1
-    return out
+    return out.permute(0, 1, 4, 2, 3)
 
 
 shade_volume.launches = 0
+
+
+def kernel_occupancy() -> tuple[int, int]:
+    """(blocks of the shade kernel that fit one SM, threads of a block), as
+    the CUDA runtime reports them for the built library."""
+    lib = cuda_lib.load("shade")
+    out = []
+    for fn in (lib.shade_blocks_per_sm, lib.shade_block_threads):
+        fn.restype = ctypes.c_int
+        fn.argtypes = []
+        out.append(int(fn()))
+    return out[0], out[1]

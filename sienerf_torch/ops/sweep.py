@@ -50,6 +50,66 @@ def slab_schedule(n_cascades: int, resolution: int):
     )
 
 
+def _clip_interval(a, b, lo, hi, jl, jh):
+    """Intersect [jl, jh] with the j for which lo <= a + b*j <= hi, widened
+    by one slab on either side -> (jl, jh, some); f64 tensors."""
+    flat = b == 0
+    safe = torch.where(flat, torch.ones_like(b), b)
+    t1, t2 = (lo - a) / safe, (hi - a) / safe
+    jl2 = torch.maximum(jl, torch.ceil(torch.minimum(t1, t2)) - 1.0)
+    jh2 = torch.minimum(jh, torch.floor(torch.maximum(t1, t2)) + 1.0)
+    jl = torch.where(flat, jl, jl2)
+    jh = torch.where(flat, jh, jh2)
+    some = torch.where(flat, (a >= lo) & (a <= hi), jl <= jh)
+    return jl, jh, some
+
+
+@torch.no_grad()
+def slab_intervals(o_c, eb, ec, near, t_stop=None, phase=None, *,
+                   resolution: int, n_cascades: int):
+    """Per cascade and intermediate pixel, the interval [ja, jb) of slab
+    indices outside which no sample can be live -> two (K, Hi, Wi) int32
+    tensors (ja = R, jb = 0 where no slab can be).
+
+    Within a cascade gu, gv and t_hat are affine in the slab index j, so
+    the slabs with 0 <= gu, gv <= R and near <= t_hat <= t_stop form one
+    interval.  It is computed in f64 with a margin that covers the f32
+    evaluation error of the composite's own tests and widened by one slab,
+    so it is a superset: the composite restricted to it equals the full
+    loop bit for bit.  Plain version of the intervals of the CUDA sweep
+    kernel (csrc/sweep.cu), which walks only these slabs."""
+    R, K = resolution, n_cascades
+    f64 = torch.float64
+    eb, ec = eb.float(), ec.float()
+    L = torch.sqrt(1.0 + eb[:, None] ** 2 + ec[None, :] ** 2).to(f64)
+    o0, o1, o2 = (o_c.float()[i].to(f64) for i in range(3))
+    es = (eb.to(f64)[:, None].expand_as(L), ec.to(f64)[None, :].expand_as(L))
+    stop = torch.full_like(L, float("inf")) if t_stop is None else t_stop.float().to(f64)
+    ph = 0.0 if phase is None else float(np.float32(phase))
+    near = float(np.float32(near))
+    eps = 32.0 / 16777216.0
+    ja, jb = [], []
+    for m in range(K):
+        pitch = float(np.float32(2.0 ** m / R))
+        side = pitch * R
+        lo = 0.5 - 0.5 * side
+        xs = lo + ph * pitch - o0  # x_rel at j = 0
+        xmax = 2.0 * side + 1.0 + o0.abs()
+        jl = torch.zeros_like(L)
+        jh = torch.full_like(L, R - 1.0)
+        some = torch.ones_like(L, dtype=torch.bool)
+        for e, o in zip(es, (o1, o2)):
+            d = eps * (o.abs() + abs(lo) + xmax * e.abs() + 1.0) / pitch
+            jl, jh, ok = _clip_interval((o + xs * e - lo) / pitch, e, -d, R + d, jl, jh)
+            some &= ok
+        dt = eps * xmax * L
+        jl, jh, ok = _clip_interval(xs * L, pitch * L, near - dt, stop + dt, jl, jh)
+        some &= ok & (jl <= jh)
+        ja.append(torch.where(some, jl, float(R)).to(torch.int32))
+        jb.append(torch.where(some, jh + 1.0, 0.0).to(torch.int32))
+    return torch.stack(ja), torch.stack(jb)
+
+
 def orient_grid(grid5: torch.Tensor, axis: int, flip: bool) -> torch.Tensor:
     """(K, X, Y, Z, C) volume -> (K, S_a, C, S_b, S_c) slab-major view for
     the sweep along `axis`, ascending after an optional flip; b < c are the
@@ -86,7 +146,8 @@ def _interp_matrix(targets: torch.Tensor, n_src: int,
 
 def _composite_over(oriented, o_c, eb, ec, near, min_transmittance,
                     resolution: int, n_cascades: int, interp: str = "nearest",
-                    t_stop=None, phase=None, stats: dict | None = None):
+                    t_stop=None, phase=None, stats: dict | None = None,
+                    intervals=None):
     """Front-to-back composite of every slab of slab_schedule onto the
     intermediate image -> (rgb (Hi, Wi, 3), opacity, T, depth_t (Hi, Wi)).
 
@@ -96,7 +157,9 @@ def _composite_over(oriented, o_c, eb, ec, near, min_transmittance,
     inside the lattice, and in nearest mode not on a zeroed inner-square
     texel) and stats["texels"] the distinct (cascade, plane, u, v) texels
     those samples read, both as device tensors.  Slabs whose sigma is zero
-    everywhere are counted as neither: no sample there needs work."""
+    everywhere are counted as neither: no sample there needs work.  With
+    `intervals` (slab_intervals' result) a sample outside its pixel's
+    interval is dropped before any test, as the CUDA kernel drops it."""
     R = resolution
     Rv = R + 1
     dev = oriented.device
@@ -155,6 +218,8 @@ def _composite_over(oriented, o_c, eb, ec, near, min_transmittance,
         alive = (T >= min_transmittance) & (t_hat >= near)
         if t_stop is not None:
             alive = alive & (t_hat <= t_stop)
+        if intervals is not None:
+            alive = alive & (intervals[0][m] <= j) & (j < intervals[1][m])
         if stats is not None:
             need = alive & ((gu >= 0) & (gu <= R))[:, None] & ((gv >= 0) & (gv <= R))[None, :]
             if interp == "nearest":
@@ -190,12 +255,14 @@ def _composite_over(oriented, o_c, eb, ec, near, min_transmittance,
 @torch.no_grad()
 def sweep_composite(oriented, o_c, eb, ec, near, min_transmittance,
                     t_stop=None, phase=None, *, resolution: int,
-                    n_cascades: int, interp: str = "nearest", stats: dict | None = None):
+                    n_cascades: int, interp: str = "nearest", stats: dict | None = None,
+                    intervals=None):
     """Plain single-device sweep over an oriented (K, R+1, 4, R+1, R+1) bf16
     volume ([s*r, s*g, s*b, s]) -> (rgb (Hi, Wi, 3), opacity, T, depth_t)."""
     return _composite_over(oriented, o_c, eb, ec, near, min_transmittance,
                            resolution, n_cascades, interp=interp,
-                           t_stop=t_stop, phase=phase, stats=stats)
+                           t_stop=t_stop, phase=phase, stats=stats,
+                           intervals=intervals)
 
 
 def warp_to_pixels(maps: torch.Tensor, e_px: torch.Tensor,

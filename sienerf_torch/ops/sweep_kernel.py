@@ -1,9 +1,11 @@
 """K2, the fused slab-sweep composite: CUDA kernel wrapper.
 
 Port of the JAX package's ops/sweep_pallas.py::sweep_composite_pallas.  The
-kernel is `csrc/sweep.cu` (one thread per intermediate pixel, the slab loop
-inside the thread, the carry in registers; its source note gives the design
-and the bound).  The plain version is ops/sweep.py::sweep_composite.
+kernel is `csrc/sweep.cu` (one thread per intermediate pixel, a loop over
+the slabs of the pixel's live intervals, the carry in registers, a texel of
+channel-last storage as one 8-byte load; its source note gives the design
+and the bound).  The plain version is ops/sweep.py::sweep_composite, and
+ops/sweep.py::slab_intervals is the plain version of the kernel's intervals.
 """
 
 from __future__ import annotations
@@ -49,10 +51,12 @@ def sweep_composite_kernel(volume, o_c, eb, ec, near, min_transmittance,
     """K2: composite every slab of slab_schedule front to back.
 
     volume: (K, R+1, 4, R+1, R+1) bf16 [s*r, s*g, s*b, s] in sweep order,
-    any strides (a permuted view of the shade kernel's axis-0 volume);
+    any strides (a permuted view of the shade kernel's channel-last
+    storage reads a texel as one 8-byte load; any other channel stride
+    takes the kernel's generic path);
     o_c (3,) canonical camera origin; eb (Hi,), ec (Wi,) gnomonic
     coordinates; t_stop optional (Hi, Wi) per-pixel t cap; phase optional
-    slab-phase jitter in [0, 1).  -> (rgb (Hi, Wi, 3), opacity, T,
+    slab-phase jitter in [0, 1) -> (rgb (Hi, Wi, 3), opacity, T,
     depth_t (Hi, Wi)), all f32.  Launches the CUDA kernel for CUDA
     tensors; tensors on the CPU take the plain version."""
     if interp not in _INTERPS:
@@ -71,6 +75,10 @@ def sweep_composite_kernel(volume, o_c, eb, ec, near, min_transmittance,
         raise ValueError(f"sweep_composite_kernel: volume must be bf16 "
                          f"({K}, {Rv}, 4, {Rv}, {Rv}), got {volume.dtype} "
                          f"{tuple(volume.shape)}")
+    # channel-last: the 4 channels of a texel are 8 contiguous, aligned bytes
+    strides = volume.stride()
+    channel_last = (strides[2] == 1 and volume.data_ptr() % 8 == 0
+                    and all(s % 4 == 0 for i, s in enumerate(strides) if i != 2))
     f32 = dict(device=dev, dtype=torch.float32)
     o_c = o_c.to(**f32).contiguous()
     eb = eb.to(**f32).contiguous()
@@ -90,15 +98,15 @@ def sweep_composite_kernel(volume, o_c, eb, ec, near, min_transmittance,
     fn = lib.sweep_composite_launch
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] + [ctypes.c_longlong] * 5
-        + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+        [ctypes.c_void_p] + [ctypes.c_longlong] * 5 + [ctypes.c_int]
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
         + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
-        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 2
         + [ctypes.c_void_p] * 5)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(volume.data_ptr(), *volume.stride(),
-                  sched.data_ptr(), sched.shape[0], o_c.data_ptr(),
+        code = fn(volume.data_ptr(), *strides, int(channel_last),
+                  sched.data_ptr(), sched.shape[0], K, o_c.data_ptr(),
                   eb.data_ptr(), ec.data_ptr(),
                   None if t_stop is None else t_stop.data_ptr(),
                   Hi, Wi, R, float(np.float32(near)),

@@ -41,11 +41,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _shade_inputs(R=8, K=3, seed=0, device="cpu"):
+def _shade_inputs(R=8, K=3, seed=0, device="cpu", culled=0.3):
     rng = np.random.default_rng(seed)
     Rv = R + 1
     rows = rng.integers(-32767, 32768, (K * Rv ** 3, 16)).astype(np.int16)
-    rows[rng.random(K * Rv ** 3) < 0.3] = -32768  # culled vertices
+    rows[rng.random(K * Rv ** 3) < culled] = -32768  # culled vertices
     scale = rng.uniform(2e-5, 2e-4, (K, 16)).astype(np.float32)
     ws = [rng.normal(0, s, shp).astype(np.float32)
           for s, shp in ((0.3, (32, 64)), (0.2, (64, 64)), (0.2, (64, 3)))]
@@ -54,12 +54,17 @@ def _shade_inputs(R=8, K=3, seed=0, device="cpu"):
     return t(rows), t(scale), t(cam), [t(w) for w in ws]
 
 
-def _sweep_inputs(R=16, K=2, Hi=32, Wi=128, seed=0, device="cpu"):
+def _sweep_inputs(R=16, K=2, Hi=32, Wi=128, seed=0, device="cpu", channel_last=False):
+    """A camera on -x and a volume: contiguous channel-planar
+    (K, R+1, 4, R+1, R+1), or with channel_last the same values as
+    channel-last storage (K, R+1, R+1, R+1, 4)."""
     rng = np.random.default_rng(seed)
     Rv = R + 1
-    vol = rng.uniform(0, 1, (K, Rv, 4, Rv, Rv)).astype(np.float32)
-    vol[:, :, 3] *= 4.0
-    vol[:, : Rv // 4, 3] = 0.0
+    vol = rng.uniform(0, 1, (K, Rv, Rv, Rv, 4)).astype(np.float32)
+    vol[..., 3] *= 4.0
+    vol[:, : Rv // 4, :, :, 3] = 0.0
+    if not channel_last:
+        vol = np.ascontiguousarray(vol.transpose(0, 1, 4, 2, 3))
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
     o_c = t([-0.7, 0.45, 0.55])
     eb = t(np.linspace(-0.4, 0.5, Hi))
@@ -132,11 +137,61 @@ def test_shade_kernel_matches_plain(cuda, act):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("interp,use_stop,phase,flip", [
+@pytest.mark.parametrize("act", [NerfActivation.LOGISTIC, NerfActivation.EXPONENTIAL])
+@pytest.mark.parametrize("culled", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("R,K", [(5, 1), (5, 3), (16, 1), (16, 3)])
+def test_shade_kernel_ragged_sizes_and_culling(cuda, R, K, culled, act):
+    """Vertex counts that are no multiple of the kernel's 32-vertex tile,
+    tiles that straddle planes and cascades, and tiles whose rows are all,
+    partly or never culled."""
+    rows, scale, cam, ws = _shade_inputs(R=R, K=K, seed=R + K, device=cuda, culled=culled)
+    kw = dict(resolution=R, n_cascades=K, density_act=NerfActivation.EXPONENTIAL,
+              rgb_act=act)
+    got = shade_volume(rows, scale, cam, ws, **kw)
+    torch.cuda.synchronize()
+    want = shade_volume_plain(rows, scale, cam, ws, **kw)
+    assert got.shape == want.shape == (K, R + 1, 4, R + 1, R + 1)
+    assert got.stride(2) == 1 and want.stride(2) == 1  # channel-last storage
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-3)
+    if culled == 1.0:
+        assert not bool(got.float().any())
+
+
+SWEEP_ROWS = [
     ("nearest", False, None, False), ("bilinear", False, None, False),
     ("nearest", True, None, False), ("nearest", False, 0.4375, False),
     ("bilinear", True, 0.25, True), ("nearest", False, None, True),
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp,use_stop,phase,flip", SWEEP_ROWS)
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("layout", ["channel_last", "channel_planar"])
+def test_sweep_kernel_views_and_layouts(cuda, layout, axis, interp, use_stop, phase, flip):
+    """The three sweep-axis views of one channel-last volume (8-byte texels)
+    and their channel-planar copies (the generic path), at an image size
+    that is no multiple of the kernel's pixel tile."""
+    from sienerf_torch.ops.sweep import orient_grid
+
+    R, K = 16, 2
+    vol5, o_c, eb, ec, stop = _sweep_inputs(R, K, 37, 131, axis, cuda, channel_last=True)
+    view = orient_grid(vol5, axis, False)
+    assert view.stride(2) == 1
+    if layout == "channel_planar":
+        view = view.contiguous()
+    args = (o_c, eb, ec, 0.05, 1e-4, stop if use_stop else None, phase)
+    kw = dict(resolution=R, n_cascades=K, interp=interp, data_flip=flip)
+    want = sweep_composite_plain(view, *args, **kw)
+    got = sweep_composite_kernel(view, *args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w.contiguous(), rtol=1e-4, atol=2e-4)
+    assert float(got[1].max()) > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp,use_stop,phase,flip", SWEEP_ROWS)
 def test_sweep_kernel_matches_plain(cuda, interp, use_stop, phase, flip):
     vol, o_c, eb, ec, stop = _sweep_inputs(device=cuda)
     args = (o_c, eb, ec, 0.05, 1e-4, stop if use_stop else None, phase)
