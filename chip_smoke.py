@@ -11,7 +11,8 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   sienerf_torch/csrc/sweep.cu: slab intervals, 8-byte texels), K2 on the
   three sweep axes and on a channel-planar copy of the volume;
 - the gather probe (sienerf_torch/tools/bench_gather.py) with G1 and G2
-  (sienerf_torch/csrc/gather.cu) at the probe's own sizes;
+  (sienerf_torch/csrc/gather.cu) at the probe's own sizes, each kernel timed
+  by bursts of launches and by single calls;
 - the live path: Session.render(renderer="live"), the streaming
   ray-marched renderer, at 1280x720, a 160x90 frame of it against the same
   code on the CPU, and the sweep frames' PSNR and SSIM against the live
@@ -184,7 +185,8 @@ def main() -> int:
     for name, n in launches_probe.items():
         check(n >= 1, f"kernel {name} was never launched by the gather probe")
     check(all(r["equal"] for r in probe), "gather probe: a result differs from plain")
-    # the kernel table carries each kernel at its first (largest-table) shape
+    # the kernel table carries each kernel at its first (largest-table) shape;
+    # `ms` is the burst time, `call_ms` one isolated call (bench_gather)
     g1_main = next(r for r in probe if r["name"] == "G1")
     g2_main = next(r for r in probe if r["name"] == "G2" and "T=65536" in r["shape"]
                    and "float32" in r["shape"])
@@ -508,13 +510,14 @@ def main() -> int:
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
          "ms_by_axis": k2_axis_ms, "channel_planar_ms_by_axis": k2_planar_ms},
     ]
-    for name, r in (("gather_rows", g1_main), ("gather_small", g2_main)):
+    for name, tag, r in (("gather_rows", "G1", g1_main), ("gather_small", "G2", g2_main)):
         kernels.append(
             {"name": name, "route": "cuda", "source": "sienerf_torch/csrc/gather.cu",
              "replaces": REPLACES[name], "launches": launches_probe[name],
-             "max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
-             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-             "library_ms": r["library_ms"], "shape": r["shape"]})
+             "max_abs_err": 0.0, "ms": r["ms"], "call_ms": r["call_ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": r["library_ms"], "shape": r["shape"],
+             "ms_by_shape": {x["shape"]: x["ms"] for x in probe if x["name"] == tag}})
     log(json.dumps({"frame_ms": frame_med,
                     "frame_ms_by_view": [statistics.median(ms) for ms in frame_ms_by_view],
                     "bake_s": bake_s, "live_frame_ms": live_med,

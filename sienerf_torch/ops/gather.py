@@ -24,9 +24,12 @@ import torch
 from sienerf_torch.ops import cuda_lib
 
 ROW_LANES = 128  # G1's row: 128 int32 = 512 bytes
-# blocks per SM of a launch: both kernels walk their work in a grid-stride
-# loop, so this only has to fill the card
-_BLOCKS_PER_SM = 32
+# the launch functions' C signature: table, idx, out, n_idx, g or units,
+# t_rows, the device's SM count, stream
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                                      ctypes.c_int, ctypes.c_void_p])
+_bound: dict[str, tuple] = {}  # launch function name -> (library, bound function)
+_sms: dict[int, int] = {}  # device index -> SM count
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor, g: int = 1) -> torch.Tensor:
@@ -49,23 +52,38 @@ def _check_idx(name: str, table: torch.Tensor, idx: torch.Tensor) -> None:
         raise ValueError(f"{name}: idx on {idx.device}, table on {table.device}")
     if not table.is_contiguous():
         raise ValueError(f"{name}: table must be contiguous")
+    if table.data_ptr() % 16:
+        raise ValueError(f"{name}: the table must start on a 16-byte boundary")
+    if table.shape[0] == 0 and idx.shape[0] > 0:
+        raise ValueError(f"{name}: {idx.shape[0]} indices into an empty table")
+
+
+def _function(fn_name: str):
+    """(library, launch function), its argument types set once for each
+    loaded library.  The library is asked for on every call, so a failed
+    build raises on every call."""
+    lib = cuda_lib.load("gather")
+    got = _bound.get(fn_name)
+    if got is None or got[0] is not lib:
+        fn = getattr(lib, fn_name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES
+        got = _bound[fn_name] = (lib, fn)
+    return got
 
 
 def _launch(fn_name: str, table, idx, out, n_idx: int, arg: int, t_rows: int) -> None:
-    if table.data_ptr() % 16:
-        raise ValueError("gather: the table must start on a 16-byte boundary")
-    lib = cuda_lib.load("gather")
-    fn = getattr(lib, fn_name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
-    dev = table.device
-    max_blocks = torch.cuda.get_device_properties(dev).multi_processor_count * _BLOCKS_PER_SM
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), n_idx, arg,
-                  t_rows, max_blocks, stream)
+    lib, fn = _function(fn_name)
+    dev = table.device.index
+    sms = _sms.get(dev)
+    if sms is None:
+        sms = _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    args = (table.data_ptr(), idx.data_ptr(), out.data_ptr(), n_idx, arg, t_rows, sms)
+    if dev == torch.cuda.current_device():
+        code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            code = fn(*args, torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(lib, "gather", code)
 
 
@@ -102,11 +120,12 @@ gather_rows.launches = 0
 
 def gather_small(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """G2: table (T, C) of any dtype whose rows are a multiple of 16 bytes,
-    idx (N,) int32 in [0, T) -> (N, C) with out[i] = table[idx[i]].  Meant
-    for tables that fit the card's L2 (the TPU kernel holds the table in
-    VMEM); larger tables work and run at HBM speed.  Launches the CUDA
-    kernel for CUDA tensors; tensors on the CPU take the plain version.  On
-    the card an index out of range trips a device-side assert."""
+    starting on a 16-byte boundary, idx (N,) int32 in [0, T) -> (N, C) with
+    out[i] = table[idx[i]].  Meant for tables that fit the card's L2 (the
+    TPU kernel holds the table in VMEM); larger tables work and run at HBM
+    speed.  Launches the CUDA kernel for CUDA tensors; tensors on the CPU
+    take the plain version.  On the card an index out of range trips a
+    device-side assert."""
     if table.dim() != 2:
         raise ValueError(f"gather_small: table must be (T, C), got {tuple(table.shape)}")
     row_bytes = table.shape[1] * table.element_size()

@@ -125,3 +125,82 @@ def test_launch_counts_stay_zero_on_cpu():
     gather_rows(torch.from_numpy(table), torch.from_numpy(idx))
     gather_small(torch.zeros((64, 4)), torch.from_numpy(idx))
     assert (gather_rows.launches, gather_small.launches) == before
+
+
+# --- the probe's arithmetic and the wrappers' checks (no card needed) --------
+
+
+@pytest.mark.parametrize("name,g,row_bytes", [("G1", 1, 512), ("G1", 2, 512),
+                                              ("G2", 1, 64), ("G2", 1, 128)])
+def test_probe_bound_counts_distinct_rows(name, g, row_bytes):
+    """bench_gather._result on a hand-made idx: 6 indices, 4 distinct."""
+    from sienerf_torch.tools.bench_gather import HBM_BPS, _result
+
+    idx = torch.tensor([0, 3, 3, 5, 0, 7], dtype=torch.int32)
+    timed = dict(ms=0.5, burst_len=4, call_ms=0.75, trace_ms=None)
+    r = _result(name, "hand-made", idx, 6 * g, g, row_bytes, timed, 1.0, 2.0, 0.25, True)
+    distinct_bytes = 4 * g * row_bytes
+    out_bytes = 6 * g * row_bytes + 6 * 4
+    assert r["rows"] == 6 * g and r["row_bytes"] == row_bytes and r["bound_by"] == "bytes"
+    assert r["bound_ms"] == pytest.approx(1e3 * (distinct_bytes + out_bytes) / HBM_BPS,
+                                          rel=1e-12)
+    assert r["traffic_ms"] == pytest.approx(1e3 * (6 * g * row_bytes + out_bytes) / HBM_BPS,
+                                            rel=1e-12)
+    assert r["traffic_ms"] > r["bound_ms"]
+    assert (r["ms"], r["burst_len"], r["call_ms"], r["trace_ms"]) == (0.5, 4, 0.75, None)
+    assert (r["plain_ms"], r["library_ms"], r["write_ms"], r["equal"]) == (1.0, 2.0, 0.25, True)
+
+
+@pytest.mark.parametrize("per_call_ms,want_len", [(0.03, 34), (0.4, 3), (2.5, 1),
+                                                  (1e-5, 512)])
+def test_burst_length_lasts_the_minimum(monkeypatch, per_call_ms, want_len):
+    """A burst holds enough launches to last 1 ms on the device, at least
+    one and at most 512; its lead covers the host's time to queue it; the
+    result is the median of the timed bursts."""
+    from sienerf_torch.tools import bench_gather
+
+    calls = []
+    host_ms = 0.02
+
+    def fake_burst(fn, n, lead_ms):
+        calls.append((n, lead_ms))
+        return per_call_ms * (1.0 + 0.01 * len(calls)), host_ms
+
+    monkeypatch.setattr(bench_gather, "_burst", fake_burst)
+    monkeypatch.setattr(bench_gather.torch.cuda, "synchronize", lambda: None)
+    ms, n = bench_gather.burst_ms(lambda: None, bursts=5)
+    assert n == want_len
+    lead = 0.1 + 1.5 * want_len * host_ms
+    assert calls == [(8, 1.0)] + [(want_len, lead)] * 6  # sizing, warm-up, five timed
+    assert ms == pytest.approx(per_call_ms * (1.0 + 0.01 * 5))  # the median of calls 3-7
+
+
+@pytest.mark.parametrize("case", ["small_misaligned", "rows_misaligned", "small_empty",
+                                  "rows_empty"])
+def test_wrappers_reject_misaligned_and_empty_tables(case):
+    """A table that does not start on a 16-byte boundary, and indices into
+    an empty table, are refused on every device, before any launch."""
+    idx = torch.zeros(4, dtype=torch.int32)
+    before = (gather_rows.launches, gather_small.launches)
+    with pytest.raises(ValueError, match="16-byte boundary|empty table"):
+        if case == "small_misaligned":
+            raw = torch.zeros(17 * 16, dtype=torch.uint8)
+            table = raw[1:257].view(16, 16)  # rows of 16 bytes, one byte in
+            assert table.is_contiguous() and table.data_ptr() % 16
+            gather_small(table, idx)
+        elif case == "rows_misaligned":
+            raw = torch.zeros(3 * 128 + 1, dtype=torch.int32)
+            table = raw[1:].view(3, 128)  # one int32 in
+            assert table.is_contiguous() and table.data_ptr() % 16
+            gather_rows(table, idx % 3)
+        elif case == "small_empty":
+            gather_small(torch.zeros((0, 8)), idx)
+        else:
+            gather_rows(torch.zeros((0, 128), dtype=torch.int32), idx)
+    assert (gather_rows.launches, gather_small.launches) == before
+
+
+def test_wrappers_take_no_indices_into_an_empty_table():
+    idx = torch.zeros(0, dtype=torch.int32)
+    assert tuple(gather_small(torch.zeros((0, 8)), idx).shape) == (0, 8)
+    assert tuple(gather_rows(torch.zeros((0, 128), dtype=torch.int32), idx).shape) == (0, 1, 128)

@@ -268,6 +268,91 @@ def test_g2_kernel_equals_plain(cuda, dtype, c):
     assert torch.equal(got, gather_small_plain(table, idx))
 
 
+# G2 across every instantiation of gather.cu: 16-512-byte rows are the
+# templated kernels (UNITS 1-32), 48 and 1024 bytes the generic one
+G2_ROW_BYTES = (16, 32, 48, 64, 128, 256, 512, 1024)
+G2_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.uint8, torch.int32)
+G2_NS = (0, 1, 31, 33, 1000, (1 << 20) + 7)
+
+
+def _g2_table(t, row_bytes, dtype, device, seed=0):
+    """(t, row_bytes / itemsize) of random bits: NaN patterns included, so
+    results are compared as bytes."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    raw = torch.randint(0, 256, (t, row_bytes), generator=gen, dtype=torch.uint8, device=device)
+    return raw.view(dtype)
+
+
+def _g2_indices(kind, t, n, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if kind == "equal":
+        idx = torch.full((n,), t // 3, dtype=torch.int32, device=device)
+    elif kind == "last":  # every other index and the final one on row t - 1
+        idx = torch.randint(0, t, (n,), generator=gen, device=device, dtype=torch.int32)
+        idx[1::2] = t - 1
+        idx[-1:] = t - 1
+    else:
+        idx = torch.randint(0, t, (n,), generator=gen, device=device, dtype=torch.int32)
+        if kind == "sorted":
+            idx = idx.sort().values
+    return idx
+
+
+def _bytes_equal(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", G2_DTYPES)
+@pytest.mark.parametrize("row_bytes", G2_ROW_BYTES)
+def test_g2_kernel_bit_equal_every_width_type_count_and_pattern(cuda, row_bytes, dtype):
+    """Every N and index pattern at one row width and type, each launch
+    counted once."""
+    t = 3001  # not a power of two: the last row sits mid-sector
+    table = _g2_table(t, row_bytes, dtype, cuda, seed=row_bytes)
+    assert table.shape[1] * table.element_size() == row_bytes
+    for n in G2_NS:
+        for kind in ("equal", "sorted", "random", "last"):
+            idx = _g2_indices(kind, t, n, cuda, seed=n)
+            before = gather_small.launches
+            got = gather_small(table, idx)
+            torch.cuda.synchronize()
+            assert gather_small.launches == before + 1
+            assert _bytes_equal(got, gather_small_plain(table, idx)), (n, kind)
+
+
+@pytest.mark.cuda
+def test_g2_kernel_table_larger_than_l2(cuda):
+    """2^22 rows of 64 bytes (268 MB, over five times the 50 MB L2)."""
+    table = _g2_table(1 << 22, 64, torch.float32, cuda, seed=7)
+    for kind in ("random", "sorted", "last"):
+        idx = _g2_indices(kind, table.shape[0], 1 << 20, cuda, seed=3)
+        got = gather_small(table, idx)
+        torch.cuda.synchronize()
+        assert _bytes_equal(got, gather_small_plain(table, idx)), kind
+
+
+@pytest.mark.cuda
+def test_gather_wrappers_cached_state_gives_the_same_result(cuda):
+    """The bound ctypes functions and the SM count are kept after the first
+    call; a second call, and a call after a synchronise, agree with it."""
+    table = _g2_table(5000, 128, torch.bfloat16, cuda)
+    idx = _g2_indices("random", 5000, 100_003, cuda)
+    t32, i32 = (torch.from_numpy(a).to(cuda) for a in _g1_inputs(2000, 5000, 2))
+    first = gather_small(table, idx), gather_rows(t32, i32, 2)
+    assert set(gather._bound) >= {"gather_small_launch", "gather_rows512_launch"}
+    assert gather._sms[torch.cuda.current_device()] == torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+    second = gather_small(table, idx), gather_rows(t32, i32, 2)
+    torch.cuda.synchronize()
+    third = gather_small(table, idx), gather_rows(t32, i32, 2)
+    torch.cuda.synchronize()
+    for got in (first, second, third):
+        assert _bytes_equal(got[0], gather_small_plain(table, idx))
+        assert torch.equal(got[1], gather_rows_plain(t32, i32, 2))
+
+
 @pytest.mark.cuda
 def test_gather_wrappers_never_fall_back(cuda, monkeypatch):
     """With the build broken a CUDA call raises; it does not take the plain
