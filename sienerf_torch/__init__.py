@@ -8,7 +8,10 @@ passes another device.
 
 Ported so far: the serving path (render-only snapshot -> baked int16
 lattice -> slab-sweep frame, with the shade and sweep-composite kernels),
-the live streaming ray-marched renderer with the quality measures, and the
-gather probe (`tools/bench_gather.py`) with its two row-gather kernels.
-Every kernel is written by hand in CUDA C++ (`csrc/`).
+the live streaming ray-marched renderer with the quality measures, the
+gather probe (`tools/bench_gather.py`) with its two row-gather kernels, and
+the NeRF trainer (`engines/nerf.py::train_bundle`, `Session.train`), whose
+trained field renders through the same sweep.  Every kernel is written by
+hand in CUDA C++ (`csrc/`); the trainer runs none, as the JAX trainer runs
+no Pallas code.
 """

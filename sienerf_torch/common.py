@@ -49,4 +49,6 @@ MIN_CONE_STEPSIZE = STEPSIZE
 # the largest step is the width of the coarsest occupancy-grid cell
 MAX_CONE_STEPSIZE = STEPSIZE * (1 << (NERF_CASCADES - 1)) * NERF_STEPS / NERF_GRIDSIZE
 NERF_RENDERING_NEAR_DISTANCE = 0.05
+# the NeRF datasets' default scale of world units onto the unit cube
+NERF_SCALE = 0.33
 NERF_MIN_OPTICAL_THICKNESS = 0.01

@@ -1,4 +1,5 @@
-"""Carry weights and bakes across from the JAX package's numpy form.
+"""Carry weights, training states and bakes across from the JAX package's
+numpy form.
 
 The JAX package packs fp8 and bf16 table rows as f32 bitcasts and int16
 bake rows as int32 pairs for its TPU gathers; the port keeps the bytes in
@@ -61,3 +62,29 @@ def bake_from_jax(grid: dict, device: str | torch.device = "cuda") -> dict[str, 
     i16 = rows.view("<i2").reshape(rows.shape[0], rows.shape[1] * 2)
     return {"rows": torch.from_numpy(np.array(i16)).to(device),
             "scale": torch.from_numpy(np.array(np.asarray(grid["scale"], np.float32))).to(device)}
+
+
+def train_state_from_jax(np_state: dict,
+                         device: str | torch.device = "cuda") -> dict:
+    """A JAX NerfEngine training state as numpy -> the port's training
+    state: params, optimizer m / v / ema / step, occupancy density /
+    bitfield / mean_density / n_updates, step and the error map.  Steps
+    and update counts become Python ints, as the port keeps them."""
+    opt = np_state["opt"]
+    state = {
+        "params": params_from_jax(np_state["params"], device),
+        "opt": {"m": params_from_jax(opt["m"], device),
+                "v": params_from_jax(opt["v"], device),
+                "step": int(np.asarray(opt["step"]))},
+        "occ": {"density": _leaf(np_state["occ"]["density"], device),
+                "bitfield": _leaf(np_state["occ"]["bitfield"], device).bool(),
+                "mean_density": _leaf(np.float32(np_state["occ"]["mean_density"]), device),
+                "n_updates": int(np.asarray(np_state["occ"]["n_updates"]))},
+        "step": int(np.asarray(np_state["step"])),
+    }
+    if "ema" in opt:
+        state["opt"]["ema"] = params_from_jax(opt["ema"], device)
+    if "emap" in np_state:
+        state["emap"] = {"error": _leaf(np_state["emap"]["error"], device),
+                         "decay": float(np.float32(np_state["emap"]["decay"]))}
+    return state

@@ -1,7 +1,19 @@
-"""NeRF engine, the render side (port of the render parts of the JAX
-package's engines/nerf.py::NerfEngine): the streaming ray-marched live
-renderer (render_frame), fixed ray batches (render_rays), and the bake entry
-of the sweep path (bake_features).
+"""NeRF engine (port of the JAX package's engines/nerf.py::NerfEngine):
+the trainer (train_bundle), the streaming ray-marched live renderer
+(render_frame), fixed ray batches (render_rays), and the bake entry of the
+sweep path (bake_features).
+
+Training, compacted: a bundle is one occupancy update and then
+`grid_interval` steps.  A step draws a ray batch (uniform, or from the
+error map after its warm-up), marches every ray to completion through the
+occupancy grid, packs the samples into one dense batch of
+train_n_rays * train_k samples (rays that do not fit are dropped whole),
+evaluates the field there, composites each ray over a random background,
+and takes an Adam step on the Huber loss against the image.  The ray count
+follows the measured samples a ray in power-of-four buckets.  The random
+part of each step and of each occupancy update is drawn apart from its
+computation (`draw_step`, `draw_occupancy`), from a torch.Generator, so
+that a test can hand in the JAX package's draws.
 
 The live renderer keeps a fixed buffer of `tile` ray slots.  Each round
 marches `render_chunk` samples for every slot through the occupancy grid,
@@ -12,46 +24,79 @@ on-device while loop; here the loop is a Python `while` that asks the
 device once per round whether any ray is alive, and every step inside is
 plain PyTorch.
 
-Not ported yet: render modes `normals` (needs the hash grid's position
-gradient) and `distortion`, the envmap background, extra-dim conditioning,
-the fine render grid's bake (`bake_render_grid`), and training.
+Not ported yet (Slice C2 of ROADMAP.md; each raises NotImplementedError):
+the optional learners (extrinsics, focal, exposure, distortion map with
+render mode `distortion`, extra-dim conditioning, trainable envmap), depth
+supervision, rolling shutter, the near-density regulariser, the legacy
+two-phase path (compact_training=False), the envmap background, and the
+fine render grid's bake (`bake_render_grid`).
 """
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from sienerf_torch.common import NERF_RENDERING_NEAR_DISTANCE
+from sienerf_torch.common import NERF_RENDERING_NEAR_DISTANCE, LensMode
 from sienerf_torch.io.nerf_dataset import NerfDataset
 from sienerf_torch.models.nerf_network import (
     NerfNetworkConfig,
     apply_density_activation,
     apply_rgb_activation,
+    density_raw,
+    init_nerf_network,
     nerf_apply,
+    nerf_l2_mask,
 )
 from sienerf_torch.ops.hashgrid import pack_table_bf16, pack_table_fp8
+from sienerf_torch.ops.importance import (
+    draw_error_map_uniforms,
+    init_error_map,
+    sample_error_map,
+    splat_errors,
+)
+from sienerf_torch.ops.losses import get_loss
 from sienerf_torch.ops.occupancy import (
+    OccupancyConfig,
+    draw_density_update,
+    init_occupancy_state,
+    mark_untrained_cells,
     n_cascades_for_aabb_scale,
     occupied_bbox,
     pack_occupancy,
     ray_box_times,
+    update_density_grid,
+)
+from sienerf_torch.ops.optim import (
+    OptimizerSpec,
+    inference_params,
+    optim_init,
+    optim_step,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
 )
 from sienerf_torch.ops.raymarch import (
     MarchConfig,
     advance_to_occupied,
+    calc_dt,
+    compact_samples,
     composite_chunk,
+    composite_flat,
     cone_angle_for_aabb,
     march_rays,
 )
 from sienerf_torch.utils.bbox import BoundingBox
 from sienerf_torch.utils.camera import Lens, uv_to_ray
 
-RENDER_MODES = ("shade", "cost", "positions", "depth", "ao", "encoding_vis")
+RENDER_MODES = ("shade", "cost", "positions", "depth", "ao", "encoding_vis", "normals")
 _FRAME_PHASES = ("setup", "advance", "march", "eval", "composite", "flush")
+# a training step's phases (train_bundle's stats)
+TRAIN_PHASES = ("sample", "march", "field", "composite", "optimizer", "occupancy")
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -59,19 +104,17 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
 
 
 class _PhaseClock:
-    """Frame statistics for a caller's `stats` dict: rounds and the host's
-    wait for the device's per-round answer always; with
-    stats["sync_phases"] set, also the seconds of each phase, measured by
-    synchronising the device after it (which slows the frame, so a timed
-    frame leaves it unset)."""
+    """Statistics for a caller's `stats` dict: with stats["sync_phases"]
+    set, the seconds of each of `phases`, measured by synchronising the
+    device after it (which slows the work, so a timed run leaves it
+    unset); for a frame also the host's wait for the device's per-round
+    answer."""
 
-    def __init__(self, stats: dict | None, device: torch.device):
+    def __init__(self, stats: dict | None, device: torch.device, phases=_FRAME_PHASES):
         self.stats = stats
         self.sync = bool(stats and stats.get("sync_phases")) and device.type == "cuda"
-        if stats is not None:
-            stats.update(rounds=0, host_wait_s=0.0)
-            if stats.get("sync_phases"):
-                stats["phase_s"] = dict.fromkeys(_FRAME_PHASES, 0.0)
+        if stats is not None and stats.get("sync_phases"):
+            stats["phase_s"] = dict.fromkeys(phases, 0.0)
         self._t = time.perf_counter()
 
     def phase(self, name: str) -> None:
@@ -97,13 +140,41 @@ class NerfEngine:
     net: NerfNetworkConfig
     aabb: BoundingBox
     march: MarchConfig = field(default_factory=MarchConfig)
+    opt: OptimizerSpec = field(default_factory=OptimizerSpec)
+    occ: OccupancyConfig = field(default_factory=OccupancyConfig)
+    loss_otype: str = "Huber"
+    # the training batch: train_n_rays * train_k samples (2^18 by default)
+    train_n_rays: int = 4096
     # the training march budget, which bounds the render budget too: the
     # field is only trained to explain pixels within that march
     train_k: int = 64
+    # compacted training: march every ray to completion (at most
+    # max_samples_per_ray samples), pack the samples into one dense batch
+    # and follow the measured samples a ray with the ray count; the legacy
+    # two-phase path (False) is not ported yet
     compact_training: bool = True
     max_samples_per_ray: int = 1024
     # the training near plane: closer than this the field is untrained
     near_distance: float = 0.1
+    grid_interval: int = 16  # steps a bundle: one occupancy update each
+    dense_until: int = 256  # dense occupancy refresh before this step ...
+    dense_every_updates: int = 16  # ... and every this many updates after
+    min_transmittance: float = 1e-4
+    # error-map importance sampling after a uniform warm-up
+    use_error_map: bool = True
+    error_map_res: int = 32
+    error_map_warmup: int = 256
+    # optional learners and loss terms (Slice C2 of ROADMAP.md): setting
+    # one raises NotImplementedError when training starts
+    optimize_extrinsics: bool = False
+    optimize_focal: bool = False
+    optimize_exposure: bool = False
+    optimize_distortion: bool = False
+    near_density_reg: float = 0.0
+    depth_supervision_lambda: float = 0.0
+    train_envmap: bool = False
+    rolling_shutter: np.ndarray | None = None
+    optimize_extra_dims: bool = False
     render_chunk: int = 16  # samples per ray between field evaluations
     render_max_chunks: int = 96
     # packed hash table for the forward-only render path: "bf16", "fp8" or
@@ -115,35 +186,90 @@ class NerfEngine:
     render_min_transmittance: float = 0.01
     # per-frame advance of every ray to its first occupied voxel; 0 disables
     init_advance_iters: int = 160
+    # host copies of the dataset (create); the device copies live in .data
+    images: np.ndarray | None = None
     xforms: np.ndarray | None = None
     focals: np.ndarray | None = None
     principal_points: np.ndarray | None = None
     resolution: tuple = (0, 0)
     lens: Lens = field(default_factory=Lens)
+    visible_mask: np.ndarray | None = None
+    data: dict | None = None
     device: torch.device = field(default_factory=lambda: torch.device("cuda"))
 
     @staticmethod
-    def create(network_config: dict, dataset: NerfDataset, grid_size: int = 128,
-               train_k: int = 64, device: str | torch.device = "cuda") -> "NerfEngine":
+    def create(network_config: dict, dataset: NerfDataset, train_batch_size: int = 1 << 18,
+               grid_size: int = 128, train_k: int = 64,
+               device: str | torch.device = "cuda") -> "NerfEngine":
+        """An engine for `dataset` on `device`: the network, optimizer and
+        occupancy configs, the cells some camera sees, and the device
+        copies of the images and cameras.  A dataset that needs an optional
+        learner of Slice C2 (extra dims, light directions, an envmap,
+        rolling shutter, depth) raises NotImplementedError."""
+        c2 = "is not ported yet: Slice C2 of ROADMAP.md"
+        if dataset.n_extra_dims:
+            raise NotImplementedError(f"extra-dim conditioning (light dirs, latent codes) {c2}")
+        if dataset.envmap is not None:
+            raise NotImplementedError(f"the trainable envmap {c2}")
+        if dataset.xforms_end is not None:
+            raise NotImplementedError(f"rolling shutter and motion blur {c2}")
+        if dataset.depths is not None:
+            raise NotImplementedError(f"depth supervision {c2}")
         aabb_scale = dataset.aabb_scale
-        net = NerfNetworkConfig.from_network_config(
-            network_config, aabb_scale=aabb_scale,
-            n_extra_dims=dataset.n_extra_learnable_dims, hdr=dataset.is_hdr)
-        march = MarchConfig(n_cascades=n_cascades_for_aabb_scale(aabb_scale),
-                            cone_angle=cone_angle_for_aabb(aabb_scale),
+        net = NerfNetworkConfig.from_network_config(network_config, aabb_scale=aabb_scale,
+                                                    hdr=dataset.is_hdr)
+        n_casc = n_cascades_for_aabb_scale(aabb_scale)
+        occ = OccupancyConfig(n_cascades=n_casc, grid_size=grid_size)
+        march = MarchConfig(n_cascades=n_casc, cone_angle=cone_angle_for_aabb(aabb_scale),
                             grid_size=grid_size)
-        return NerfEngine(
+        dev = torch.device(device)
+        eng = NerfEngine(
             net=net,
             aabb=BoundingBox.from_scale(aabb_scale),
             march=march,
+            opt=OptimizerSpec.from_network_config(network_config.get("optimizer", {})),
+            occ=occ,
+            loss_otype=network_config.get("loss", {}).get("otype", "Huber"),
+            train_n_rays=max(256, train_batch_size // train_k),
             train_k=train_k,
+            images=np.asarray(dataset.images),
             xforms=np.asarray(dataset.xforms),
             focals=np.asarray(dataset.focal_lengths),
             principal_points=np.asarray(dataset.principal_points),
             resolution=dataset.resolution,
             lens=dataset.lens,
-            device=torch.device(device),
+            device=dev,
         )
+        eng.visible_mask = mark_untrained_cells(
+            occ, dataset.xforms, dataset.focal_lengths,
+            np.asarray([dataset.resolution] * len(dataset.xforms), np.float32))
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        eng.data = {"images": put(eng.images.astype(np.float32)),
+                    "xforms": put(eng.xforms.astype(np.float32)),
+                    "focals": put(eng.focals.astype(np.float32)),
+                    "pp": put(eng.principal_points.astype(np.float32)),
+                    "visible_mask": put(eng.visible_mask)}
+        return eng
+
+    def init(self, seed: int = 1337) -> dict:
+        """A fresh training state: params, optimizer state, occupancy grid,
+        step 0 and the error map, drawn from a generator seeded with
+        `seed` on the engine's device."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        params = init_nerf_network(self.net, gen, self.device)
+        state = {
+            "params": params,
+            "opt": optim_init(params, self.opt),
+            "occ": init_occupancy_state(self.occ, self.device),
+            "step": 0,
+        }
+        if self.use_error_map:
+            state["emap"] = init_error_map(self.images.shape[0], self.error_map_res,
+                                           self.device)
+        return state
 
     # --- shared pieces ----------------------------------------------------
 
@@ -173,6 +299,238 @@ class NerfEngine:
         dens = apply_density_activation(dens_raw, self.net.density_activation).reshape(N, K)
         return rgb, torch.where(valid, dens, 0.0), valid
 
+    def _aabb_tensors(self):
+        return (torch.as_tensor(self.aabb.min, device=self.device),
+                torch.as_tensor(self.aabb.diag, device=self.device))
+
+    # --- training ---------------------------------------------------------
+
+    def _check_trainable(self) -> None:
+        c2 = "is not ported yet: Slice C2 of ROADMAP.md"
+        if not self.compact_training:
+            raise NotImplementedError(f"the two-phase path (compact_training=False) {c2}")
+        for on, what in ((self.optimize_extrinsics, "extrinsics optimisation"),
+                         (self.optimize_focal, "focal optimisation"),
+                         (self.optimize_exposure, "exposure optimisation"),
+                         (self.optimize_distortion, "the trainable distortion map"),
+                         (self.optimize_extra_dims, "extra-dim conditioning"),
+                         (self.train_envmap, "the trainable envmap"),
+                         (self.near_density_reg > 0.0, "the near-density regulariser"),
+                         (self.depth_supervision_lambda > 0.0, "depth supervision"),
+                         (self.rolling_shutter is not None, "rolling shutter")):
+            if on:
+                raise NotImplementedError(f"{what} {c2}")
+
+    def draw_step(self, generator: torch.Generator, n_rays: int, step: int) -> dict:
+        """The random part of one training step, on the engine's device:
+        the rays' images and pixels (uniform "img_idx" and "uv" before the
+        error map's warm-up ends, the sampler's uniforms "emap" after), the
+        first-sample jitter and the random background."""
+        dev = self.device
+        d = {}
+        if self.use_error_map and step >= self.error_map_warmup:
+            d["emap"] = draw_error_map_uniforms(n_rays, generator, dev)
+        else:
+            d["img_idx"] = torch.randint(0, self.images.shape[0], (n_rays,),
+                                         generator=generator, device=dev)
+            d["uv"] = torch.rand((n_rays, 2), generator=generator, device=dev)
+        d["jitter"] = torch.rand((n_rays,), generator=generator, device=dev)
+        d["bg"] = torch.rand((n_rays, 3), generator=generator, device=dev)
+        return d
+
+    def _sample_training_rays(self, draws: dict, emap: dict | None):
+        """draws -> (origins, dirs, target rgba, background, (img_idx, u, v)
+        at the pixel centres).  Pinhole cameras."""
+        w, h = self.resolution
+        data = self.data
+        if "emap" in draws:
+            img_idx, u, v = sample_error_map(emap, draws["emap"])
+        else:
+            img_idx, u, v = draws["img_idx"], draws["uv"][:, 0], draws["uv"][:, 1]
+        img_idx = img_idx.to(torch.int64)
+        px = torch.clamp((u * w).to(torch.int64), max=w - 1)
+        py = torch.clamp((v * h).to(torch.int64), max=h - 1)
+        uv = torch.stack([(px.float() + 0.5) / w, (py.float() + 0.5) / h], dim=-1)
+        origins, dirs = _batched_uv_to_ray(uv, (w, h), data["focals"][img_idx],
+                                           data["pp"][img_idx], data["xforms"][img_idx],
+                                           self.lens)
+        target = data["images"].reshape(-1, 4)[(img_idx * h + py) * w + px]
+        return origins, dirs, target, draws["bg"], (img_idx, uv[:, 0], uv[:, 1])
+
+    def _loss_for_batch(self, params: dict, bitfield: torch.Tensor, draws: dict,
+                        emap: dict | None, k: int, iters: int, clock: "_PhaseClock"):
+        """The compacted training loss of one batch -> (loss, (counts,
+        per-ray loss, (img_idx, u, v)))."""
+        origins, dirs, target, bg, ray_meta = self._sample_training_rays(draws, emap)
+        dirs_n = dirs / _norm(dirs)
+        t0, t1 = self._aabb_times(origins, dirs_n, self.near_distance)
+        # first-sample jitter: decorrelates the sample lattice across steps
+        t0 = t0 + calc_dt(t0, self.march.cone_angle) * draws["jitter"]
+        clock.phase("sample")
+        ts, dts, counts, t_end = march_rays(self.march, bitfield, origins, dirs_n, t0, t1,
+                                            k, iters)
+        n = origins.shape[0]
+        t_f, dt_f, ray_id, ray_start, fits = compact_samples(
+            ts, dts, counts, self.train_n_rays * self.train_k)
+        rid = torch.clamp(ray_id.to(torch.int64), max=n - 1)
+        o_s, d_s = origins[rid], dirs_n[rid]
+        pos = o_s + t_f[:, None] * d_s
+        amin, adiag = self._aabb_tensors()
+        unit = torch.clamp((pos - amin) / adiag, 0.0, 1.0)
+        dirw = (d_s + 1.0) * 0.5
+        clock.phase("march")
+        rgb_raw, dens_raw = nerf_apply(self.net, params, unit, dirw)
+        clock.phase("field")
+        if clock.sync and rgb_raw.requires_grad:
+            # the backward reaches the field's outputs when the composite's
+            # and the loss's backward are done
+            for t in (rgb_raw, dens_raw):
+                t.register_hook(lambda g: clock.phase("composite"))
+        rgb_s = apply_rgb_activation(rgb_raw, self.net.rgb_activation)
+        dens_s = apply_density_activation(dens_raw, self.net.density_activation)
+        rgb_sum, _, T_out, _ = composite_flat(rgb_s, dens_s, t_f, dt_f, ray_id, ray_start,
+                                              n, self.min_transmittance)
+        # a ray trains only when its march completed: it left the scene or
+        # its transmittance fell below the threshold; a ray cut by the
+        # sample cap or the iteration budget would train a fog billboard
+        fits = fits & ((t_end >= t1) | (T_out < self.min_transmittance))
+        pred = rgb_sum + T_out[:, None] * bg
+        # the target composited over the same background
+        gt = target[:, :3] * target[:, 3:4] + bg.detach() * (1.0 - target[:, 3:4])
+        per_ray = get_loss(self.loss_otype)(pred, gt).mean(dim=-1)
+        # masked pixels carry negative rgb and add nothing; the mean's
+        # denominator counts the rays that train
+        ray_ok = (target[:, 0] >= 0.0) & fits
+        per_ray = torch.where(ray_ok, per_ray, 0.0)
+        loss = per_ray.sum() / torch.clamp(ray_ok.float().sum(), min=1.0)
+        return loss, (counts, per_ray, ray_meta)
+
+    def loss_and_grads(self, state: dict, draws: dict, k: int, iters: int,
+                       clock: "_PhaseClock | None" = None):
+        """The loss of one batch and its gradient in every param leaf ->
+        (loss, grads like params, (counts, per-ray loss, ray meta))."""
+        clock = clock or _PhaseClock(None, self.device)
+        with torch.enable_grad():
+            p_req = tree_map(lambda t: t.detach().requires_grad_(True), state["params"])
+            loss, aux = self._loss_for_batch(p_req, state["occ"]["bitfield"], draws,
+                                             state.get("emap"), k, iters, clock)
+            clock.phase("composite")
+            grads = torch.autograd.grad(loss, tree_leaves(p_req))
+        clock.phase("field")
+        return loss.detach(), tree_unflatten(state["params"], list(grads)), aux
+
+    def train_step(self, state: dict, draws: dict, k: int, iters: int,
+                   clock: "_PhaseClock | None" = None):
+        """One step from `draws` (draw_step) -> (new state, loss, mean
+        samples a ray), the two numbers as 0-d tensors."""
+        self._check_trainable()
+        clock = clock or _PhaseClock(None, self.device)
+        loss, grads, (counts, per_ray, ray_meta) = self.loss_and_grads(
+            state, draws, k, iters, clock)
+        params, opt = optim_step(self.opt, state["opt"], state["params"], grads,
+                                 nerf_l2_mask(state["params"]))
+        new_state = {**state, "params": params, "opt": opt, "step": int(state["step"]) + 1}
+        if "emap" in state:
+            img_idx, u, v = ray_meta
+            new_state["emap"] = splat_errors(state["emap"], img_idx, u, v, per_ray.detach())
+        clock.phase("optimizer")
+        return new_state, loss, counts.float().mean()
+
+    def _dense_update(self, state: dict) -> bool:
+        return (int(state["step"]) < self.dense_until
+                or int(state["occ"]["n_updates"]) % self.dense_every_updates == 0)
+
+    def draw_occupancy(self, state: dict, generator: torch.Generator):
+        """The random part of the occupancy update due at `state`: dense
+        before step `dense_until` and every `dense_every_updates` updates,
+        else G^3/4 random cells a cascade."""
+        return draw_density_update(self.occ, self._dense_update(state), generator,
+                                   self.device)
+
+    def occupancy_update(self, state: dict, draws) -> dict:
+        """Fold the density of the current (raw) params at the drawn cells
+        into the occupancy grid."""
+        params = state["params"]
+
+        def density(unit):
+            return apply_density_activation(density_raw(self.net, params, unit),
+                                            self.net.density_activation)
+
+        amin, adiag = self._aabb_tensors()
+        occ = update_density_grid(self.occ, state["occ"], density, draws, amin, adiag,
+                                  self.data["visible_mask"])
+        return {**state, "occ": occ}
+
+    def _phase_geometry(self):
+        """(n_rays, k, march_iters) of the next bundle.  The first marches
+        1024-sample rays; later ones set k from the measured samples a ray
+        and the ray count so that the compacted samples fill the
+        train_n_rays * train_k batch, both in power-of-four buckets (they
+        define the batch, and in the reference each pair is a compile)."""
+        M = self.train_n_rays * self.train_k
+        mean = getattr(self, "_mean_samples", None)
+        if not mean or mean <= 0:
+            k = self.max_samples_per_ray
+            n_rays = max(64, M // k)
+        else:
+            k = int(np.clip(4 ** int(np.ceil(np.log(max(2.0 * mean, 16.0)) / np.log(4))),
+                            16, self.max_samples_per_ray))
+            want = 1.15 * M / mean
+            n_rays = 4 ** int(np.clip(np.round(np.log(max(want, 64.0)) / np.log(4)), 3, 8))
+        return n_rays, k, int(k + k // 2 + 128)
+
+    def _update_phase(self, mean_count: float) -> None:
+        if mean_count > 0:
+            prev = getattr(self, "_mean_samples", None)
+            self._mean_samples = mean_count if not prev else 0.7 * prev + 0.3 * mean_count
+
+    def train_bundle(self, state: dict, generator: torch.Generator,
+                     stats: dict | None = None):
+        """One occupancy update, then grid_interval steps -> (state, mean
+        loss, mean samples a ray), the two numbers as 0-d tensors.
+
+        `stats`, when given, receives the bundle's n_rays, k and march
+        iterations, and with stats["sync_phases"] set the seconds of each
+        training phase (TRAIN_PHASES), measured by synchronising the device
+        after each (which slows the bundle)."""
+        self._check_trainable()
+        clock = _PhaseClock(stats, self.device, TRAIN_PHASES)
+        n_rays, k, iters = self._phase_geometry()
+        state = self.occupancy_update(state, self.draw_occupancy(state, generator))
+        clock.phase("occupancy")
+        losses, counts = [], []
+        for _ in range(self.grid_interval):
+            draws = self.draw_step(generator, n_rays, int(state["step"]))
+            state, loss, cnt = self.train_step(state, draws, k, iters, clock)
+            losses.append(loss)
+            counts.append(cnt)
+        loss, cnt = torch.stack(losses).mean(), torch.stack(counts).mean()
+        self._update_phase(float(cnt))
+        if stats is not None:
+            stats.update(n_rays=n_rays, k=k, iters=iters)
+        return state, loss, cnt
+
+    def eval_psnr(self, state: dict, view_indices, background=(0.0, 0.0, 0.0),
+                  downscale: int = 1):
+        """PSNR of live frames of the EMA params at training cameras
+        against their images composited over `background` (the eval
+        protocol: min transmittance 1e-4) -> (mean, per view)."""
+        params = inference_params(state["opt"], state["params"])
+        w, h = self.resolution
+        psnrs = []
+        for vi in view_indices:
+            rgba, _ = self.render_frame(
+                params, state["occ"]["bitfield"], w // downscale, h // downscale,
+                self.xforms[vi], tuple(np.asarray(self.focals[vi]) / downscale),
+                screen_center=tuple(np.asarray(self.principal_points[vi])),
+                min_transmittance=1e-4)
+            gt = np.asarray(self.images[vi])[::downscale, ::downscale]
+            bg = np.asarray(background, np.float32)
+            gt_rgb = gt[..., :3] * gt[..., 3:4] + bg * (1.0 - gt[..., 3:4])
+            mse = float(np.mean((rgba[..., :3].cpu().numpy() - gt_rgb) ** 2))
+            psnrs.append(-10.0 * math.log10(max(mse, 1e-12)))
+        return float(np.mean(psnrs)), psnrs
+
     # --- rendering --------------------------------------------------------
 
     def _mode_sample_colors(self, params, origins, dirs, ts, dts, counts, render_mode):
@@ -192,6 +550,18 @@ class NerfEngine:
         elif mode == "ao":
             alpha = 1.0 - torch.exp(-dens * dts)
             rgb = alpha[..., None].expand(pos.shape)
+        elif mode == "normals":
+            # the normal points where density falls: minus the density's
+            # position gradient, through the hash grid's backward
+            amin, adiag = self._aabb_tensors()
+            N, K = ts.shape
+            with torch.enable_grad():
+                unit = ((pos.reshape(-1, 3) - amin) / adiag).clamp(0.0, 1.0)
+                unit = unit.detach().requires_grad_(True)
+                dens_u = apply_density_activation(density_raw(self.net, params, unit),
+                                                  self.net.density_activation)
+                (g,) = torch.autograd.grad(dens_u.sum(), unit)
+            rgb = -g.reshape(N, K, 3)
         elif mode == "encoding_vis":
             # the network-domain position
             dev = pos.device
@@ -255,10 +625,21 @@ class NerfEngine:
         return rgb, dens, valid
 
     @staticmethod
+    def _mode_epilogue(rgb: torch.Tensor, opacity: torch.Tensor, render_mode):
+        """Per-mode frame epilogue: mode `normals` normalises the
+        composited gradient and maps it to [0, 1], weighted by opacity."""
+        if render_mode == "normals":
+            n = rgb / torch.clamp(_norm(rgb), min=1e-9)
+            return (0.5 * n + 0.5) * opacity[..., None]
+        return rgb
+
+    @staticmethod
     def _check_mode(render_mode) -> None:
         mode = render_mode or "shade"
-        if mode in ("normals", "distortion"):
-            raise NotImplementedError(f"render mode {mode!r} is not ported yet")
+        if mode == "distortion":
+            raise NotImplementedError(
+                "render mode 'distortion' (the trainable distortion map) is not ported "
+                "yet: Slice C2 of ROADMAP.md")
         if mode not in RENDER_MODES and not mode.startswith("glow"):
             raise ValueError(f"render mode {mode} not supported for NeRF")
 
@@ -333,6 +714,7 @@ class NerfEngine:
             # samples-per-ray heatmap
             rgb_acc = (used.float() / 128.0)[:, None].expand(N, 3)
             op_acc = torch.ones_like(op_acc)
+        rgb_acc = self._mode_epilogue(rgb_acc, op_acc, render_mode)
         # t is distance along the unit direction; depth is z-depth along the
         # camera axis, t / |dirs| for (x, y, 1) camera rays
         return rgb_acc, op_acc, best_t / dn[:, 0]
@@ -355,6 +737,8 @@ class NerfEngine:
             raise NotImplementedError("envmap backgrounds are not ported yet")
         dev = bitfield.device
         clock = _PhaseClock(stats, dev)
+        if stats is not None:
+            stats.update(rounds=0, host_wait_s=0.0)
         n = width * height
         A = min(tile, max(256, n))
         off = (0.5, 0.5) if pixel_offset is None else pixel_offset
@@ -403,6 +787,7 @@ class NerfEngine:
         rgb = out[:, :3]
         opacity = out[:, 3]
         depth = out[:, 4]
+        rgb = self._mode_epilogue(rgb, opacity, render_mode)
         if render_mode == "cost":
             opacity = torch.ones_like(opacity)
         bg = torch.as_tensor(np.asarray(background, np.float32), device=dev)
@@ -566,3 +951,19 @@ class NerfEngine:
             cursor=s["cursor"] + done.sum(),
         )
         return s2
+
+
+def _batched_uv_to_ray(uv: torch.Tensor, resolution, focal: torch.Tensor,
+                       principal: torch.Tensor, xform: torch.Tensor, lens: Lens):
+    """Rays of pinhole cameras given per ray: uv (N, 2), focal (N, 2),
+    principal point (N, 2), xform (N, 3, 4) -> (origins, dirs).  The
+    rotation is applied as explicit f32 products and sums, never a matmul
+    that could run in TF32 (the reference's einsum is Precision.HIGHEST)."""
+    if lens.mode != LensMode.PERSPECTIVE:
+        raise NotImplementedError(f"lens {lens.mode} is not ported yet")
+    w, h = resolution
+    x = (uv[:, 0] - principal[:, 0]) * w / focal[:, 0]
+    y = (uv[:, 1] - principal[:, 1]) * h / focal[:, 1]
+    rot = xform[:, :3, :3]
+    dirs = rot[:, :, 0] * x[:, None] + rot[:, :, 1] * y[:, None] + rot[:, :, 2]
+    return xform[:, :3, 3], dirs

@@ -1,5 +1,5 @@
-"""NerfNetwork configuration and forward pieces (port of the render subset
-of the JAX package's models/nerf_network.py).
+"""NerfNetwork configuration, initialisation and forward (port of the JAX
+package's models/nerf_network.py).
 
 Topology: pos -> hash grid -> density MLP -> 16 geo features (density is
 channel 0); [SH(dir), extra dims, geo features] -> rgb MLP -> 3.  Output
@@ -27,8 +27,9 @@ from sienerf_torch.ops.hashgrid import (
     hashgrid_encode,
     hashgrid_encode_bf16,
     hashgrid_encode_fp8,
+    init_hashgrid_params,
 )
-from sienerf_torch.ops.mlp import MLPConfig, mlp_apply
+from sienerf_torch.ops.mlp import MLPConfig, init_mlp_params, mlp_apply
 
 N_GEO_FEATURES = 16
 
@@ -87,6 +88,30 @@ class NerfNetworkConfig:
             pos_otype=pos_otype,
             pos_opts=pos_opts,
         )
+
+
+def init_nerf_network(config: NerfNetworkConfig, generator: torch.Generator,
+                      device=None) -> dict:
+    """Fresh params: the hash table (grid encodings) and both MLPs."""
+    params = {
+        "density_mlp": init_mlp_params(config.density_mlp, generator, device),
+        "rgb_mlp": init_mlp_params(config.rgb_mlp, generator, device),
+    }
+    if config.pos_otype == "grid":
+        params["grid"] = init_hashgrid_params(config.grid, generator, device)
+    return params
+
+
+def nerf_l2_mask(params: dict) -> dict:
+    """1.0 on the MLP matrices, which take l2 regularisation, 0.0 on the
+    hash table."""
+    mask = {
+        "density_mlp": [1.0 for _ in params["density_mlp"]],
+        "rgb_mlp": [1.0 for _ in params["rgb_mlp"]],
+    }
+    if "grid" in params:
+        mask["grid"] = 0.0
+    return mask
 
 
 def _encode_pos(config: NerfNetworkConfig, params: dict,

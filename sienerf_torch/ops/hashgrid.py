@@ -1,8 +1,8 @@
-"""Multiresolution hash-grid encoding, forward only (port of the JAX
-package's ops/hashgrid.py: HashGridConfig, _static_level_data,
-_geometry_cell, the forward of hashgrid_encode for cell-layout tables, and
-the render-side packed tables pack_table_bf16 / hashgrid_encode_bf16 and
-pack_table_fp8 / hashgrid_encode_fp8).
+"""Multiresolution hash-grid encoding (port of the JAX package's
+ops/hashgrid.py: HashGridConfig, _static_level_data, _geometry_cell,
+init_hashgrid_params, hashgrid_encode for cell-layout tables with its
+backward, and the render-side packed tables pack_table_bf16 /
+hashgrid_encode_bf16 and pack_table_fp8 / hashgrid_encode_fp8).
 
 The JAX package carries packed render tables as f32 bitcasts for its TPU
 gathers; here a bf16 table is a bfloat16 tensor (L, T, C*F) and an fp8
@@ -20,6 +20,17 @@ The table is in the "cell" layout: one row per interpolation cell holding
 its 2^D corner vectors.  The hash is uint32 multiply-XOR; torch's uint32
 arithmetic is incomplete, so it is computed in int64 and masked to 32 bits
 after every product, which gives the same bits.
+
+The backward (`HashGridEncode`, a torch.autograd.Function) follows the
+reference's default mode, "bf16": each sample's contribution w * g to its
+cell row is rounded to bf16 before it is summed into d_table.  The sum
+itself runs in f32 (`index_add_`), where the reference sums in bf16: bf16
+atomics on the card would add in bf16 and in no fixed order, so the
+reference's bf16 sums cannot be reproduced either way, and its own test
+(tests/test_hashgrid.py::test_bwd_bf16_mode_close) holds bf16 mode to the
+f32 backward within 2 % of the largest gradient, which bounds the gap.
+The position gradient d_pos is computed only when pos requires a
+gradient (render mode `normals`).
 """
 
 from __future__ import annotations
@@ -114,15 +125,18 @@ def _static_level_data(config: HashGridConfig):
     return scales, res, dense, mult
 
 
-def _geometry_cell(config: HashGridConfig, pos: torch.Tensor):
+def _geometry_cell(config: HashGridConfig, pos: torch.Tensor, with_per_dim: bool = False):
     """Cell-layout geometry: one table row per (sample, level) and the
     trilinear corner weights.  pos (N, D) in [0,1]^D ->
-    (idx (N, L) int64 in [0, T), w (N, L, 2^D) f32)."""
+    (idx (N, L) int64 in [0, T), w (N, L, 2^D) f32), and with
+    `with_per_dim` also the per-dimension factors of w (N, L, 2^D, D)."""
     L, D = config.n_levels, config.n_dims
     scales, res, dense, mult = _static_level_data(config)
     dev = pos.device
     sc = torch.as_tensor(scales, device=dev)
-    x = pos.float()[:, None, :] * sc[None, :, None] + 0.5  # (N, L, D)
+    # f32 (float64 stays float64, for finite-difference checks)
+    x = pos.to(torch.promote_types(pos.dtype, torch.float32))[:, None, :] \
+        * sc[None, :, None] + 0.5  # (N, L, D)
     x_floor = torch.floor(x)
     frac = x - x_floor
     cell_max = torch.as_tensor(
@@ -149,15 +163,15 @@ def _geometry_cell(config: HashGridConfig, pos: torch.Tensor):
     w = per_dim[..., 0]
     for d in range(1, D):
         w = w * per_dim[..., d]
+    if with_per_dim:
+        return idx, w, per_dim
     return idx, w
 
 
-def _table4(config: HashGridConfig, table: torch.Tensor) -> torch.Tensor:
-    """Canonical view of a cell table handed over flat as (L, T*C*F)."""
-    if table.dim() != 2:
-        return table
-    return table.reshape(config.n_levels, config.table_size, 1 << config.n_dims,
-                         config.n_features_per_level)
+def _rows3(config: HashGridConfig, table: torch.Tensor) -> torch.Tensor:
+    """A cell table, (L, T, C, F) or flat (L, T*C*F), as rows (L, T, C*F)."""
+    return table.reshape(config.n_levels, config.table_size,
+                         (1 << config.n_dims) * config.n_features_per_level)
 
 
 def _pad_cell_table(config: HashGridConfig, table: torch.Tensor) -> torch.Tensor:
@@ -187,25 +201,87 @@ def _require_cell(config: HashGridConfig) -> None:
         raise NotImplementedError("the corner table layout is not ported yet")
 
 
+def init_hashgrid_params(config: HashGridConfig, generator: torch.Generator,
+                         device=None) -> torch.Tensor:
+    """tcnn's initial features: uniform in [-1e-4, 1e-4], shape (L, T, C, F)
+    for the cell layout."""
+    _require_cell(config)
+    shape = (config.n_levels, config.table_size, 1 << config.n_dims,
+             config.n_features_per_level)
+    return torch.empty(shape, dtype=torch.float32, device=device).uniform_(
+        -1e-4, 1e-4, generator=generator)
+
+
+class HashGridEncode(torch.autograd.Function):
+    """hashgrid_encode with the reference's backward (`_encode_bwd_impl`,
+    default mode "bf16", cell layout): d_table sums each sample's
+    contribution w * g, rounded to bf16, into its cell row in f32; d_pos
+    is the analytic position gradient."""
+
+    @staticmethod
+    def forward(ctx, table, pos, config):
+        C, F = 1 << config.n_dims, config.n_features_per_level
+        rows = _rows3(config, table)
+        ctx.config = config
+        ctx.save_for_backward(table, pos)
+        return _interpolate(
+            config, pos, lambda l, idx: rows[l].index_select(0, idx).reshape(-1, C, F))
+
+    @staticmethod
+    def backward(ctx, g):
+        table, pos = ctx.saved_tensors
+        config = ctx.config
+        L, F, D = config.n_levels, config.n_features_per_level, config.n_dims
+        C, T, N = 1 << D, config.table_size, pos.shape[0]
+        gl = g.to(torch.promote_types(g.dtype, torch.float32)).reshape(N, L, F)
+        want_pos = ctx.needs_input_grad[1]
+        geo = _geometry_cell(config, pos, with_per_dim=want_pos)
+        idx, w = geo[0], geo[1]
+        d_table = d_pos = None
+        if ctx.needs_input_grad[0]:
+            d = torch.zeros((L, T, C * F), dtype=torch.float32, device=pos.device)
+            for l in range(L):
+                contrib = (w[:, l, :, None] * gl[:, l, None, :]).reshape(N, C * F)
+                d[l].index_add_(0, idx[:, l], contrib.to(torch.bfloat16).float())
+            d_table = d.reshape(table.shape).to(table.dtype)
+        if want_pos:
+            per_dim = geo[2]
+            rows = _rows3(config, table)
+            cf = torch.stack([rows[l].index_select(0, idx[:, l]).reshape(N, C, F)
+                              for l in range(L)], dim=1)  # (N, L, C, F)
+            fdotg = (cf * gl[:, :, None, :]).sum(dim=-1)  # (N, L, C)
+            # d w / d pos_d = sign(corner offset) * (the other factors) * scale
+            sign = torch.tensor([[1.0 if (c >> d) & 1 else -1.0 for d in range(D)]
+                                 for c in range(C)], device=pos.device)
+            scales = torch.as_tensor(_static_level_data(config)[0], device=pos.device)
+            cols = []
+            for d in range(D):
+                others = [k for k in range(D) if k != d]
+                prod_others = torch.ones_like(w)
+                if others:
+                    prod_others = per_dim[..., others[0]]
+                    for k in others[1:]:
+                        prod_others = prod_others * per_dim[..., k]
+                dw = sign[None, None, :, d] * prod_others * scales[None, :, None]
+                cols.append((fdotg * dw).sum(dim=(1, 2)))
+            d_pos = torch.stack(cols, dim=-1).to(pos.dtype)
+        return d_table, d_pos, None
+
+
 def hashgrid_encode(config: HashGridConfig, table: torch.Tensor,
                     pos: torch.Tensor) -> torch.Tensor:
-    """Forward encode from the f32 cell table (L, T, C, F), or the same
-    flattened to (L, T*C*F); pos (N, D) in [0,1]^D -> (N, L*F) f32.  The
-    gradient is not ported yet."""
+    """Encode from the f32 cell table (L, T, C, F), or the same flattened
+    to (L, T*C*F); pos (N, D) in [0,1]^D -> (N, L*F) f32.  Differentiable
+    in the table and in pos (HashGridEncode)."""
     _require_cell(config)
-    C, F = 1 << config.n_dims, config.n_features_per_level
-    table = _table4(config, table).reshape(config.n_levels, config.table_size, C * F)
-    return _interpolate(
-        config, pos, lambda l, idx: table[l].index_select(0, idx).reshape(-1, C, F))
+    return HashGridEncode.apply(table, pos, config)
 
 
 def pack_table_bf16(config: HashGridConfig, table: torch.Tensor) -> torch.Tensor:
     """Render-only packing of the f32 cell table: (L, T, C, F) ->
     bfloat16 (L, T, C*F), half the gathered bytes."""
     _require_cell(config)
-    C, F = 1 << config.n_dims, config.n_features_per_level
-    return _table4(config, table).reshape(
-        config.n_levels, config.table_size, C * F).to(torch.bfloat16)
+    return _rows3(config, table).to(torch.bfloat16)
 
 
 def hashgrid_encode_bf16(config: HashGridConfig, packed: torch.Tensor,
@@ -222,8 +298,7 @@ def pack_table_fp8(config: HashGridConfig, table: torch.Tensor):
     absmax scale per level: (L, T, C, F) -> (uint8 (L, T, C*F) e4m3 bytes,
     (L,) f32 scales)."""
     _require_cell(config)
-    C, F = 1 << config.n_dims, config.n_features_per_level
-    t = _table4(config, table).reshape(config.n_levels, config.table_size, C * F)
+    t = _rows3(config, table)
     scale = torch.clamp(t.abs().amax(dim=(1, 2)), min=1e-8) / 448.0
     t8 = (t / scale[:, None, None]).to(torch.float8_e4m3fn)
     return t8.view(torch.uint8), scale

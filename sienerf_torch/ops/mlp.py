@@ -7,10 +7,18 @@ again to bf16 between layers.  Here that is `x.bfloat16().float() @
 w.bfloat16().float()`: every product of two bf16 values is exact in f32, so
 only the summation order can differ.  A bf16-output matmul would round the
 sum, which the reference does not.
+
+Autograd rounds the cotangents where JAX's transposes do: the backward of
+`.float()` rounds the gradient of each bf16 layer input, and of each bf16
+copy of a weight, to bf16 (JAX's transpose of `dot(..., preferred f32)`
+returns the operand's dtype), and the backward of `.to(bfloat16)` widens
+it to f32 again.  So weight gradients and the gradient reaching the
+encoding are bf16 values, as in the reference.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -49,6 +57,28 @@ def _activation_fn(name: str):
     if name == "exponential":
         return torch.exp
     raise NotImplementedError(f"activation {name} is not ported yet")
+
+
+def mlp_layer_dims(config: MLPConfig) -> list[tuple[int, int]]:
+    dims = []
+    d_in = config.n_input_dims
+    for _ in range(config.n_hidden_layers):
+        dims.append((d_in, config.n_neurons))
+        d_in = config.n_neurons
+    dims.append((d_in, config.n_output_dims))
+    return dims
+
+
+def init_mlp_params(config: MLPConfig, generator: torch.Generator,
+                    device=None) -> list[torch.Tensor]:
+    """He-uniform f32 weights, (d_in, d_out) a layer, in [-sqrt(6/d_in),
+    sqrt(6/d_in)]."""
+    out = []
+    for d_in, d_out in mlp_layer_dims(config):
+        bound = math.sqrt(6.0 / d_in)
+        out.append(torch.empty((d_in, d_out), dtype=torch.float32, device=device)
+                   .uniform_(-bound, bound, generator=generator))
+    return out
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,16 @@
-"""Occupancy-grid lookups (port of the render subset of
-the JAX package's ops/occupancy.py, with the bit packing of its ops/bits.py).
-Cascade m covers the cube of side 2^m centred at (0.5, 0.5, 0.5); each
-cascade is a G^3 bool grid.
+"""Multi-cascade occupancy grid (port of the JAX package's
+ops/occupancy.py, with the bit packing of its ops/bits.py): lookups for the
+march, and the trainer's update.  Cascade m covers the cube of side 2^m
+centred at (0.5, 0.5, 0.5); each cascade is a G^3 grid.
+
+The update keeps per cell an EMA of the optical thickness (activated
+density * MIN_CONE_STEPSIZE, decay 0.95): a dense refresh of every cell,
+or G^3/4 random cells a cascade, folded in by a max; then the threshold
+min(mean, NERF_MIN_OPTICAL_THICKNESS), the max-pool of each cascade into
+the centre of the next coarser one, and -1 for cells no training camera
+sees.  The random cells and positions are drawn apart from the update
+(`draw_density_update`), so that a caller can hand in another package's
+draws.
 
 The march loops probe a packed form of the grid, 32 cells to a word.  The
 JAX package holds the words as uint32; torch's uint32 arithmetic is
@@ -11,12 +20,169 @@ flat cell w*32 + i), and a probe shifts and masks."""
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
+import numpy as np
 import torch
+
+from sienerf_torch.common import MIN_CONE_STEPSIZE, NERF_GRIDSIZE, NERF_MIN_OPTICAL_THICKNESS
 
 
 def n_cascades_for_aabb_scale(aabb_scale: float) -> int:
     return 1 + max(0, int(math.ceil(math.log2(max(aabb_scale, 1.0)))))
+
+
+@dataclass(frozen=True)
+class OccupancyConfig:
+    n_cascades: int = 1
+    decay: float = 0.95
+    grid_size: int = NERF_GRIDSIZE
+
+
+def init_occupancy_state(config: OccupancyConfig, device=None) -> dict:
+    """density (C, G, G, G) f32 (< 0 where no camera sees the cell),
+    bitfield bool, mean_density a 0-d tensor, n_updates a Python int."""
+    g, c = config.grid_size, config.n_cascades
+    return {
+        "density": torch.zeros((c, g, g, g), dtype=torch.float32, device=device),
+        "bitfield": torch.zeros((c, g, g, g), dtype=torch.bool, device=device),
+        "mean_density": torch.zeros((), dtype=torch.float32, device=device),
+        "n_updates": 0,
+    }
+
+
+def cell_center(idx_xyz: torch.Tensor, mip, grid_size: int = NERF_GRIDSIZE) -> torch.Tensor:
+    """Cell index (..., 3) at cascade `mip` -> world position of its centre."""
+    scale = torch.exp2(torch.as_tensor(mip, dtype=torch.float32,
+                                       device=idx_xyz.device))[..., None]
+    return ((idx_xyz.float() + 0.5) / grid_size - 0.5) * scale + 0.5
+
+
+def mark_untrained_cells(config: OccupancyConfig, xforms: np.ndarray,
+                         focal_lengths: np.ndarray, resolutions: np.ndarray) -> np.ndarray:
+    """(C, G, G, G) bool numpy mask of the cells at least one training
+    camera sees: the cell centre, inflated by half a diagonal, projects
+    in front of the camera and inside its image (a copy of the JAX
+    package's numpy function)."""
+    g = config.grid_size
+    idx = np.stack(np.meshgrid(np.arange(g), np.arange(g), np.arange(g), indexing="ij"),
+                   axis=-1)
+    masks = []
+    xforms = np.asarray(xforms, np.float32)
+    R = xforms[:, :3, :3]  # columns are the camera axes
+    t = xforms[:, :3, 3]
+    for m in range(config.n_cascades):
+        centers = ((idx + 0.5) / g - 0.5) * (2.0 ** m) + 0.5
+        half_diag = 0.5 * math.sqrt(3.0) * (2.0 ** m) / g
+        pts = centers.reshape(-1, 3)
+        visible = np.zeros(pts.shape[0], bool)
+        for ci in range(xforms.shape[0]):
+            rel = pts - t[ci]
+            cam = rel @ R[ci]
+            z = cam[:, 2]
+            fx, fy = focal_lengths[ci]
+            w, h = resolutions[ci] if resolutions.ndim > 1 else resolutions
+            margin = half_diag
+            with np.errstate(divide="ignore", invalid="ignore"):
+                x = cam[:, 0] / np.maximum(z, 1e-9)
+                y = cam[:, 1] / np.maximum(z, 1e-9)
+            vis = (
+                (z + margin > 0.0)
+                & (np.abs(x) * fx <= 0.5 * w + margin * fx / np.maximum(z, 1e-9) + 1)
+                & (np.abs(y) * fy <= 0.5 * h + margin * fy / np.maximum(z, 1e-9) + 1)
+            )
+            visible |= vis
+            if visible.all():
+                break
+        masks.append(visible.reshape(g, g, g))
+    return np.stack(masks)
+
+
+def _eval_chunked(fn, x: torch.Tensor, chunk: int = 1 << 18) -> torch.Tensor:
+    """fn over x (M, 3) in chunks of `chunk` rows -> (M,)."""
+    return torch.cat([fn(x[s:s + chunk]) for s in range(0, x.shape[0], chunk)])
+
+
+def _sample_cell_positions(u: torch.Tensor, cascade: int, cell_idx: torch.Tensor,
+                           grid_size: int) -> torch.Tensor:
+    """World position inside each cell (M, 3) of `cascade` at the offsets
+    u (M, 3) in [0, 1)."""
+    scale = 2.0 ** cascade
+    return ((cell_idx.float() + u) / grid_size - 0.5) * scale + 0.5
+
+
+def _all_cells(g: int, device) -> torch.Tensor:
+    ax = torch.arange(g, device=device)
+    return torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), dim=-1).reshape(-1, 3)
+
+
+def draw_density_update(config: OccupancyConfig, dense: bool, generator: torch.Generator,
+                        device=None, n_samples_per_cascade: int = NERF_GRIDSIZE ** 3 // 4):
+    """The random part of one update: per cascade, the cells (None for a
+    dense refresh, which takes every cell in order; else
+    `n_samples_per_cascade` flat cell ids) and a uniform offset (M, 3) in
+    each."""
+    g3 = config.grid_size ** 3
+    out = []
+    for _ in range(config.n_cascades):
+        cells = None
+        if not dense:
+            cells = torch.randint(0, g3, (n_samples_per_cascade,), generator=generator,
+                                  device=device)
+        n = g3 if dense else n_samples_per_cascade
+        u = torch.rand((n, 3), generator=generator, device=device)
+        out.append({"cells": cells, "u": u})
+    return out
+
+
+@torch.no_grad()
+def update_density_grid(config: OccupancyConfig, state: dict, density_fn, draws,
+                        aabb_min: torch.Tensor, aabb_diag: torch.Tensor,
+                        visible_mask: torch.Tensor | None = None) -> dict:
+    """One occupancy update from `draws` (draw_density_update; dense when
+    its cells are None).  density_fn: (M, 3) unit-box positions ->
+    activated density (M,).  Returns the new state."""
+    g = config.grid_size
+    density = state["density"]
+    dense = draws[0]["cells"] is None
+    if dense:
+        idx = _all_cells(g, density.device)
+        new_vals = []
+        for m, dr in enumerate(draws):
+            pos = _sample_cell_positions(dr["u"], m, idx, g)
+            d = _eval_chunked(density_fn, (pos - aabb_min) / aabb_diag) * MIN_CONE_STEPSIZE
+            new_vals.append(d.reshape(g, g, g))
+        density = torch.maximum(density * config.decay, torch.stack(new_vals))
+    else:
+        density = density * config.decay
+        for m, dr in enumerate(draws):
+            flat = dr["cells"].to(torch.int64)
+            idx3 = torch.stack([flat // (g * g), (flat // g) % g, flat % g], dim=-1)
+            pos = _sample_cell_positions(dr["u"], m, idx3, g)
+            d = _eval_chunked(density_fn, (pos - aabb_min) / aabb_diag) * MIN_CONE_STEPSIZE
+            dm = density[m].reshape(-1).scatter_reduce(0, flat, d, reduce="amax")
+            density[m] = dm.reshape(g, g, g)
+    density, bitfield, mean_density = density_to_bitfield(density, visible_mask)
+    return {"density": density, "bitfield": bitfield, "mean_density": mean_density,
+            "n_updates": int(state["n_updates"]) + 1}
+
+
+def density_to_bitfield(density: torch.Tensor, visible_mask: torch.Tensor | None = None):
+    """(C, G, G, G) density -> (density with -1 where no camera sees the
+    cell, bitfield, mean): the threshold min(mean of cascade 0,
+    NERF_MIN_OPTICAL_THICKNESS) and the max-pool of each cascade's cells
+    (2x2x2) into the centre half of the next coarser one."""
+    c, g = density.shape[0], density.shape[1]
+    if visible_mask is not None:
+        density = torch.where(visible_mask, density, -1.0)
+    mean_density = torch.clamp(density[0], min=0.0).mean()
+    thresh = torch.clamp(mean_density, max=NERF_MIN_OPTICAL_THICKNESS)
+    bitfield = density > thresh
+    h, q = g // 2, g // 4
+    for m in range(c - 1):
+        pooled = bitfield[m].reshape(h, 2, h, 2, h, 2).any(dim=5).any(dim=3).any(dim=1)
+        bitfield[m + 1, q:q + h, q:q + h, q:q + h] |= pooled
+    return density, bitfield, mean_density
 
 
 def pos_to_cell(pos: torch.Tensor, mip: torch.Tensor, grid_size: int) -> torch.Tensor:

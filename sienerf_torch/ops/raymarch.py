@@ -10,8 +10,9 @@ function keeps the JAX package's f32 operation order: `t` advances by
 `t + dt` or `t + skip`, and one differing ulp can move a sample across a
 voxel boundary.
 
-The loops are Python loops of plain PyTorch operations.  `compact_samples`
-and `composite_flat` belong to the trainer and are not ported yet.
+The loops are Python loops of plain PyTorch operations.  The trainer's
+`compact_samples` and `composite_flat` pack the marched samples into one
+dense ray-major stream and composite it segment by segment.
 """
 
 from __future__ import annotations
@@ -27,6 +28,10 @@ from sienerf_torch.ops.occupancy import (
     occupancy_lookup_packed,
     pack_occupancy,
 )
+
+
+# iterations between the scalar march's checks for rays still marching
+_DONE_CHECK = 64
 
 
 def calc_dt(t: torch.Tensor, cone_angle: float) -> torch.Tensor:
@@ -159,7 +164,11 @@ def _march_rays_scalar(config: MarchConfig, bitfield, origins, dirs, t_start, t_
     k = torch.zeros((N,), dtype=torch.int64, device=dev)
     ts = torch.zeros((N, K), dtype=torch.float32, device=dev)
     dts = torch.zeros((N, K), dtype=torch.float32, device=dev)
-    for _ in range(n_iters):
+    for it in range(n_iters):
+        # once every ray is done an iteration changes nothing: look every
+        # _DONE_CHECK iterations (one host sync each) and stop
+        if it and it % _DONE_CHECK == 0 and not bool(((t < t_far) & (k < K)).any()):
+            break
         pos = origins + t[:, None] * dirs
         dt = calc_dt(t, config.cone_angle)
         mip = _probe_mip(config, pos, dt)
@@ -238,3 +247,72 @@ def composite_chunk(rgb: torch.Tensor, density: torch.Tensor, ts: torch.Tensor,
     best_w = w.amax(dim=1)
     best_t = torch.where(onehot, ts, 0.0).sum(dim=1)
     return rgb_sum, opacity, T_out, best_w, best_t
+
+
+def compact_samples(ts: torch.Tensor, dts: torch.Tensor, counts: torch.Tensor, M: int):
+    """Compact an (N, K) marched-sample slab into a dense ray-major stream
+    of M samples, the trainer's fixed batch.  Rays that would overflow M
+    are dropped whole (no samples, no gradient): a ray cut mid-scene would
+    train a fog "billboard" at its cut.  Each output slot finds its (ray,
+    sample) by one searchsorted over the per-ray prefix sums.
+
+    -> (t (M,), dt (M,), ray_id (M,) int32, == N on empty slots,
+    ray_start (N,) int32, fits (N,) bool)."""
+    N, K = ts.shape
+    dev = ts.device
+    counts = counts.to(torch.int64)
+    fits = torch.cumsum(counts, dim=0) <= M
+    counts2 = torch.where(fits, counts, 0)
+    prefix2 = torch.cumsum(counts2, dim=0)
+    ray_start = prefix2 - counts2
+    m = torch.arange(M, dtype=torch.int64, device=dev)
+    ray_id = torch.searchsorted(prefix2, m, right=True)
+    rid_c = torch.clamp(ray_id, max=N - 1)
+    j = m - ray_start[rid_c]
+    flat = rid_c * K + torch.clamp(j, 0, K - 1)
+    t = ts.reshape(-1)[flat]
+    dt = dts.reshape(-1)[flat]
+    ray_id = torch.where(m < prefix2[-1], ray_id, N)
+    return t, dt, ray_id.to(torch.int32), ray_start.to(torch.int32), fits
+
+
+def composite_flat(rgb: torch.Tensor, density: torch.Tensor, ts: torch.Tensor,
+                   dts: torch.Tensor, ray_id: torch.Tensor, ray_start: torch.Tensor,
+                   n_rays: int, min_transmittance: float = 1e-4):
+    """Front-to-back emission-absorption over a compact_samples stream:
+    rgb (M, 3) and density (M,) activated, ts, dts (M,), ray_id (M,)
+    sorted (n_rays on empty slots), ray_start (n_rays,).
+
+    Each sample's exclusive transmittance is exp of one global cumsum c of
+    log1p(-alpha) over all M slots minus its value at the ray's first slot,
+    as in the reference.  |c| grows with every opaque ray before a sample
+    (each of the M terms is down to log(1e-7) = -16), and a sum's rounding
+    moves T by about |c| * 2^-24 relative, so the cumsum accumulates in
+    float64 on every device (torch's CPU cumsum of f32 does so anyway) and
+    rounds each prefix to f32 once: the card and the CPU then agree, and
+    the reference (XLA sums f32 by a tree) lies within a few ulps of |c|.
+    Differentiable in rgb and density.  -> (rgb_sum (n, 3), opacity (n,),
+    T_out (n,), depth (n,), the weighted mean termination distance)."""
+    M = ts.shape[0]
+    ray_id = ray_id.to(torch.int64)
+    valid = ray_id < n_rays
+    rid = torch.clamp(ray_id, max=n_rays - 1)
+    alpha = torch.where(valid, 1.0 - torch.exp(-density * dts), 0.0)
+    lg = torch.log1p(-torch.clamp(alpha, max=1.0 - 1e-7))
+    c = torch.cumsum(lg.double(), dim=0).float()
+    c_excl = c - lg
+    base = c_excl[torch.clamp(ray_start.to(torch.int64)[rid], 0, M - 1)]
+    T_excl = torch.exp(c_excl - base)
+    keep = valid & (T_excl >= min_transmittance)
+    w = torch.where(keep, alpha * T_excl, 0.0)
+
+    def seg(v):
+        out = torch.zeros((n_rays + 1,) + v.shape[1:], dtype=v.dtype, device=v.device)
+        return out.index_add(0, ray_id, v)[:n_rays]
+
+    rgb_sum = seg(w[:, None] * rgb)
+    opacity = seg(w)
+    T_out = torch.exp(seg(torch.where(keep, lg, 0.0)))
+    T_out = torch.where(T_out < min_transmittance, 0.0, T_out)
+    depth = seg(w * ts)
+    return rgb_sum, opacity, T_out, depth

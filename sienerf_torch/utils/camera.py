@@ -8,7 +8,7 @@ the camera origin.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -19,6 +19,9 @@ from sienerf_torch.common import LensMode
 @dataclass(frozen=True)
 class Lens:
     mode: LensMode = LensMode.PERSPECTIVE
+    # OpenCV: k1 k2 p1 p2; fisheye: k1..k4 (carried from datasets; the
+    # camera math takes only the pinhole lens so far)
+    params: tuple = field(default_factory=tuple)
 
 
 def uv_to_ray(uv: torch.Tensor, resolution, focal_length, camera_matrix,

@@ -366,3 +366,68 @@ def test_gather_wrappers_never_fall_back(cuda, monkeypatch):
         gather_rows(torch.from_numpy(table).to(cuda), torch.from_numpy(idx).to(cuda))
     with pytest.raises(RuntimeError):
         gather_small(torch.zeros((64, 4), device=cuda), torch.from_numpy(idx).to(cuda))
+
+
+def _train_engine(device):
+    """A small port trainer (4 levels x 2 features, 2^12 rows, MLPs 16
+    wide, a 32^3 grid) on four seeded 32x32 views of the unit cube."""
+    from sienerf_torch.engines.nerf import NerfEngine
+    from sienerf_torch.io.nerf_dataset import NerfDataset
+    from sienerf_torch.utils.camera import look_at_matrix
+
+    rng = np.random.default_rng(0)
+    eyes = [[1.6, 0.5, 0.5], [0.5, 1.6, 0.4], [-0.6, 0.5, 0.6], [0.5, 0.4, -0.6]]
+    ds = NerfDataset(images=rng.uniform(0, 1, (4, 32, 32, 4)).astype(np.float32),
+                     xforms=np.stack([look_at_matrix(e, [0.5, 0.5, 0.5]) for e in eyes]),
+                     focal_lengths=np.full((4, 2), 40.0, np.float32),
+                     principal_points=np.full((4, 2), 0.5, np.float32),
+                     resolution=(32, 32), aabb_scale=1.0)
+    mlp = {"n_neurons": 16, "n_hidden_layers": 1}
+    cfg = {"encoding": {"otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2,
+                        "log2_hashmap_size": 12, "base_resolution": 8},
+           "network": mlp, "rgb_network": mlp,
+           "optimizer": {"otype": "Ema", "decay": 0.95,
+                         "nested": {"otype": "Adam", "learning_rate": 1e-2, "l2_reg": 1e-6}}}
+    return NerfEngine.create(cfg, ds, train_batch_size=1 << 12, grid_size=32, train_k=16,
+                             device=device)
+
+
+@pytest.mark.cuda
+def test_card_training_step_matches_the_cpu_step(cuda):
+    """One training step on the card and on the CPU from the same state and
+    draws: loss rtol 1e-3 (the card sums each MLP layer in another order, so
+    a hidden value on a bf16 rounding boundary can round the other way, as
+    in chip_smoke.py's card step); MLP gradients rtol 1e-2 / atol 1e-3 and
+    within 2 % of their largest entry, the hash table's within 2 % of max
+    |d| (the tolerances of tests/test_torch_hashgrad.py; the card's
+    index_add_ sums in no fixed order)."""
+    from sienerf_torch.ops.optim import tree_leaves, tree_map
+
+    cpu, card = _train_engine("cpu"), _train_engine(cuda)
+    gen = torch.Generator().manual_seed(1)
+    state = cpu.init(0)
+    state = cpu.occupancy_update(state, cpu.draw_occupancy(state, gen))
+    assert 0.0 < float(state["occ"]["bitfield"].float().mean()) < 1.0
+    n_rays, k, iters = cpu._phase_geometry()
+    draws = cpu.draw_step(gen, n_rays, state["step"])
+
+    def to_card(x):
+        return x.to(cuda) if isinstance(x, torch.Tensor) else x
+
+    loss, grads, aux = cpu.loss_and_grads(state, draws, k, iters)
+    closs, cgrads, caux = card.loss_and_grads(tree_map(to_card, state),
+                                              tree_map(to_card, draws), k, iters)
+    torch.cuda.synchronize()
+    assert int(aux[0].sum()) > 4 * n_rays
+    np.testing.assert_allclose(float(closs), float(loss), rtol=1e-3)
+    for name in ("density_mlp", "rgb_mlp", "grid"):
+        for a, b in zip(tree_leaves(cgrads[name]), tree_leaves(grads[name])):
+            a = a.cpu()
+            assert float((a - b).abs().max()) <= 0.02 * float(b.abs().max()), name
+            if name != "grid":
+                assert torch.allclose(a, b, rtol=1e-2, atol=1e-3), name
+    # and a step: the card's state stays on the card
+    new, loss2, cnt = card.train_step(tree_map(to_card, state), tree_map(to_card, draws),
+                                      k, iters)
+    assert new["params"]["grid"].device.type == "cuda" and new["step"] == 1
+    assert new["emap"]["error"].device.type == "cuda" and float(cnt) > 0

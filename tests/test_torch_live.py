@@ -324,9 +324,14 @@ def test_visualisation_modes_match(mode):
 def test_unported_parts_raise(what):
     _, _, teng, tp, bf = tiny()
     frame = functools.partial(teng.render_frame, tp, torch.from_numpy(bf), 8, 8, _cam(), FOCAL)
-    if what in ("normals", "distortion"):
+    if what == "distortion":
         with pytest.raises(NotImplementedError):
             frame(render_mode=what)
+    elif what == "normals":
+        # ported with the hash grid's position gradient; held to the
+        # reference in tests/test_torch_normals.py
+        rgba, _ = frame(render_mode=what)
+        assert rgba.shape == (8, 8, 4) and bool(torch.isfinite(rgba).all())
     elif what == "envmap":
         with pytest.raises(NotImplementedError):
             teng.render_frame(dict(tp, envmap=torch.zeros((4, 8, 4))), torch.from_numpy(bf),
