@@ -8,6 +8,17 @@ import enum
 import math
 
 
+class TestbedMode(enum.Enum):
+    """Workload modes."""
+
+    NONE = "none"
+    NERF = "nerf"
+    SDF = "sdf"
+    IMAGE = "image"
+    VOLUME = "volume"
+    GEOMETRY = "geometry"
+
+
 class NerfActivation(enum.Enum):
     """Output activations applied outside the network."""
 

@@ -88,3 +88,42 @@ def train_state_from_jax(np_state: dict,
         state["emap"] = {"error": _leaf(np_state["emap"]["error"], device),
                          "decay": float(np.float32(np_state["emap"]["decay"]))}
     return state
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def tree_to_numpy(tree):
+    """Tensors (and lists of them) of a params tree -> numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_numpy(v) for v in tree]
+    return _np(tree)
+
+
+def train_state_to_jax(state: dict) -> dict:
+    """The inverse of train_state_from_jax: the port's training state ->
+    numpy arrays in the JAX package's layout and types (int32 steps and
+    update counts, bool bitfield, f32 scalars), as its save_snapshot
+    writes them."""
+    opt = state["opt"]
+    out = {
+        "params": tree_to_numpy(state["params"]),
+        "opt": {"m": tree_to_numpy(opt["m"]), "v": tree_to_numpy(opt["v"]),
+                "step": np.asarray(opt["step"], np.int32)},
+        "occ": {"density": _np(state["occ"]["density"]).astype(np.float32),
+                "bitfield": _np(state["occ"]["bitfield"]).astype(bool),
+                "mean_density": np.asarray(_np(state["occ"]["mean_density"]), np.float32),
+                "n_updates": np.asarray(state["occ"]["n_updates"], np.int32)},
+        "step": np.asarray(state["step"], np.int32),
+    }
+    if "ema" in opt:
+        out["opt"]["ema"] = tree_to_numpy(opt["ema"])
+    if "emap" in state:
+        out["emap"] = {"error": _np(state["emap"]["error"]),
+                       "decay": np.asarray(state["emap"]["decay"], np.float32)}
+    return out

@@ -28,12 +28,14 @@ Not ported yet (Slice C2 of ROADMAP.md; each raises NotImplementedError):
 the optional learners (extrinsics, focal, exposure, distortion map with
 render mode `distortion`, extra-dim conditioning, trainable envmap), depth
 supervision, rolling shutter, the near-density regulariser, the legacy
-two-phase path (compact_training=False), the envmap background, and the
-fine render grid's bake (`bake_render_grid`).
+two-phase path (compact_training=False), and the fine render grid's bake
+(`bake_render_grid`).  A trained envmap in the params is read as the
+frame's background.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from dataclasses import dataclass, field
@@ -52,6 +54,7 @@ from sienerf_torch.models.nerf_network import (
     nerf_apply,
     nerf_l2_mask,
 )
+from sienerf_torch.ops.envmap import background_behind_envmap
 from sienerf_torch.ops.hashgrid import pack_table_bf16, pack_table_fp8
 from sienerf_torch.ops.importance import (
     draw_error_map_uniforms,
@@ -62,6 +65,7 @@ from sienerf_torch.ops.importance import (
 from sienerf_torch.ops.losses import get_loss
 from sienerf_torch.ops.occupancy import (
     OccupancyConfig,
+    density_to_bitfield,
     draw_density_update,
     init_occupancy_state,
     mark_untrained_cells,
@@ -171,6 +175,7 @@ class NerfEngine:
     optimize_exposure: bool = False
     optimize_distortion: bool = False
     near_density_reg: float = 0.0
+    near_reg_fraction: float = 0.25
     depth_supervision_lambda: float = 0.0
     train_envmap: bool = False
     rolling_shutter: np.ndarray | None = None
@@ -199,13 +204,15 @@ class NerfEngine:
 
     @staticmethod
     def create(network_config: dict, dataset: NerfDataset, train_batch_size: int = 1 << 18,
-               grid_size: int = 128, train_k: int = 64,
+               grid_size: int = 128, train_k: int = 64, near_density_reg: float = 0.0,
+               near_reg_fraction: float = 0.25,
                device: str | torch.device = "cuda") -> "NerfEngine":
         """An engine for `dataset` on `device`: the network, optimizer and
         occupancy configs, the cells some camera sees, and the device
         copies of the images and cameras.  A dataset that needs an optional
         learner of Slice C2 (extra dims, light directions, an envmap,
-        rolling shutter, depth) raises NotImplementedError."""
+        rolling shutter, depth), or a near-density regulariser, raises
+        NotImplementedError."""
         c2 = "is not ported yet: Slice C2 of ROADMAP.md"
         if dataset.n_extra_dims:
             raise NotImplementedError(f"extra-dim conditioning (light dirs, latent codes) {c2}")
@@ -238,8 +245,11 @@ class NerfEngine:
             principal_points=np.asarray(dataset.principal_points),
             resolution=dataset.resolution,
             lens=dataset.lens,
+            near_density_reg=near_density_reg,
+            near_reg_fraction=near_reg_fraction,
             device=dev,
         )
+        eng._check_trainable()
         eng.visible_mask = mark_untrained_cells(
             occ, dataset.xforms, dataset.focal_lengths,
             np.asarray([dataset.resolution] * len(dataset.xforms), np.float32))
@@ -253,6 +263,48 @@ class NerfEngine:
                     "pp": put(eng.principal_points.astype(np.float32)),
                     "visible_mask": put(eng.visible_mask)}
         return eng
+
+    @staticmethod
+    def from_ingp(path, dataset: NerfDataset | None = None,
+                  train_batch_size: int = 1 << 18,
+                  device: str | torch.device = "cuda"):
+        """An engine and state from a reference .ingp / .msgpack snapshot
+        -> (engine, state).  The hash table keeps tcnn's corner layout; the
+        occupancy grid, of the stored density grid's size, comes from that
+        grid.  Without a dataset the engine renders from cameras the caller
+        gives."""
+        from sienerf_torch.io.ingp import import_ingp
+
+        out = import_ingp(path)
+        aabb_scale = out["meta"]["aabb_scale"]
+        if dataset is None:
+            dataset = dataclasses.replace(
+                NerfDataset.placeholder(aabb_scale),
+                n_extra_learnable_dims=int(out["meta"].get("n_extra_learnable_dims", 0)))
+        grid_size = 128 if out["density_grid"] is None else int(out["density_grid"].shape[1])
+        eng = NerfEngine.create(out["config"], dataset, train_batch_size=train_batch_size,
+                                grid_size=grid_size, device=device)
+        state = eng.init(0)
+        dev = eng.device
+        params = dict(state["params"])
+        for k, v in out["params"].items():
+            params[k] = ([torch.from_numpy(np.array(w)).to(dev) for w in v]
+                         if isinstance(v, list) else torch.from_numpy(np.array(v)).to(dev))
+        state["params"] = params
+        state["opt"] = optim_init(params, eng.opt)
+        if out["density_grid"] is not None:
+            dens = torch.from_numpy(np.array(out["density_grid"], np.float32)).to(dev)
+            n_casc = state["occ"]["density"].shape[0]
+            if dens.shape[0] < n_casc:  # the snapshot stored fewer cascades
+                pad = torch.zeros((n_casc - dens.shape[0],) + tuple(dens.shape[1:]),
+                                  dtype=dens.dtype, device=dev)
+                dens = torch.cat([dens, pad])
+            dens, bitfield, mean = density_to_bitfield(dens[:n_casc])
+            state["occ"] = {"density": dens, "bitfield": bitfield, "mean_density": mean,
+                            "n_updates": 1}
+        state["step"] = int(out["meta"]["training_step"])
+        eng._phase = "fast"
+        return eng, state
 
     def init(self, seed: int = 1337) -> dict:
         """A fresh training state: params, optimizer state, occupancy grid,
@@ -733,8 +785,6 @@ class NerfEngine:
         seconds the host waited for the device's alive test, and (with
         stats["sync_phases"] set) the seconds of each phase."""
         self._check_mode(render_mode)
-        if "envmap" in params:
-            raise NotImplementedError("envmap backgrounds are not ported yet")
         dev = bitfield.device
         clock = _PhaseClock(stats, dev)
         if stats is not None:
@@ -791,6 +841,10 @@ class NerfEngine:
         if render_mode == "cost":
             opacity = torch.ones_like(opacity)
         bg = torch.as_tensor(np.asarray(background, np.float32), device=dev)
+        if "envmap" in params:
+            # the frame starts as the envmap's colour along each ray; the
+            # background shows through the map's transparency
+            bg = background_behind_envmap(params["envmap"], d_a, bg)
         rgb = rgb + (1.0 - opacity)[:, None] * bg
         rgba = torch.cat([rgb, opacity[:, None]], dim=-1)
         clock.phase("setup")

@@ -11,7 +11,8 @@ Per frame:
    gnomonic intermediate image, reading a texel's four channels as 8
    contiguous bytes and the flipped sweep as data plane R-j.
 3. One projective warp maps the intermediate image onto the pixels, and
-   the epilogue adds the background.
+   the epilogue adds the background (behind a trained envmap, when the
+   params carry one).
 
 `impl="kernel"` (the default) runs K1 and K2; their wrappers launch the
 CUDA kernels for CUDA tensors and take the plain versions only for
@@ -26,6 +27,7 @@ import torch
 
 from sienerf_torch.common import NERF_RENDERING_NEAR_DISTANCE, NerfActivation
 from sienerf_torch.ops.baked import row_bits
+from sienerf_torch.ops.envmap import background_behind_envmap
 from sienerf_torch.ops.shade import shade_planes, shade_volume
 from sienerf_torch.ops.sweep import canon_coords, orient_grid, sweep_composite, warp_to_pixels
 from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel
@@ -128,7 +130,7 @@ def sweep_geometry(engine, camera_matrix, focal_length, *, width: int, height: i
     dec = span[1] / (wi - 2)
     eb = elo[0] + (torch.arange(hi, device=device, dtype=torch.float32) - 0.5) * deb
     ec = elo[1] + (torch.arange(wi, device=device, dtype=torch.float32) - 0.5) * dec
-    return dict(axis=axis, flip=flip, o=o, dn=dn, o_c=o_c, e_px=e_px, good=good,
+    return dict(axis=axis, flip=flip, o=o, d=d_n, dn=dn, o_c=o_c, e_px=e_px, good=good,
                 eb=eb, ec=ec, deb=deb, dec=dec)
 
 
@@ -150,8 +152,6 @@ def render_frame_sweep(engine, params, grid, meta, camera_matrix, focal_length, 
         raise ValueError("sweep renderer needs a mode='nearest' bake")
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown impl {impl!r}")
-    if "envmap" in params:
-        raise NotImplementedError("envmap backgrounds are not ported yet")
     rows, scale = grid["rows"], grid["scale"]
     dev = rows.device
     if impl == "kernel" and dev.type == "cuda" and not _fused_prep_eligible(engine, grid):
@@ -188,6 +188,8 @@ def render_frame_sweep(engine, params, grid, meta, camera_matrix, focal_length, 
     opacity = torch.where(good, outs[:, 3].clamp(0.0, 1.0), 0.0)
     depth = torch.where(good, outs[:, 4], 0.0) / torch.clamp(g["dn"], min=1e-9)
     bg = torch.as_tensor(np.asarray(background, np.float32), device=dev)
+    if "envmap" in params:
+        bg = background_behind_envmap(params["envmap"], g["d"], bg)
     rgb = rgb + (1.0 - opacity)[:, None] * bg
     if packed:
         out5 = torch.stack([rgb[:, 0], rgb[:, 1], rgb[:, 2], opacity, depth], dim=0)

@@ -1,9 +1,11 @@
-"""Snapshot loading (port of the load half of the JAX package's io/snapshot.py).
+"""Snapshot save and load (port of the JAX package's io/snapshot.py).
 
 A snapshot is zlib-compressed msgpack holding {"version", "state", "config",
-"meta"}; arrays are {"__ndarray__", "dtype", "shape", "data"} leaves.  The
-decoder is the package's own pure-Python msgpack (io/msgpack_lite.py), so
-no msgpack package is needed.
+"meta"}; arrays are {"__ndarray__", "dtype", "shape", "data"} leaves keyed
+by bytes, and the occupancy density is stored as fp16.  The codec is the
+package's own pure-Python msgpack (io/msgpack_lite.py), so no msgpack
+package is needed; the files it writes load in the JAX package's
+load_snapshot, and the JAX package's files load here.
 """
 
 from __future__ import annotations
@@ -31,6 +33,34 @@ def _unpack_tree(tree):
     if isinstance(tree, list):
         return [_unpack_tree(v) for v in tree]
     return tree
+
+
+SNAPSHOT_VERSION = 1
+
+
+def _pack_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _pack_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_pack_tree(v) for v in tree]
+    if isinstance(tree, np.ndarray):
+        return {b"__ndarray__": True, b"dtype": tree.dtype.str,
+                b"shape": list(tree.shape), b"data": tree.tobytes()}
+    return tree
+
+
+def save_snapshot(path: str | Path, state: dict, config: dict | None = None,
+                  meta: dict | None = None, level: int = 6) -> None:
+    """Write a state tree of numpy leaves (convert.train_state_to_jax gives
+    the training state in that form), zlib-compressed at `level`; the
+    occupancy density is stored as fp16, as the reference stores it."""
+    state = dict(state)
+    if "density" in state.get("occ", {}):
+        state["occ"] = dict(state["occ"], density=np.asarray(state["occ"]["density"],
+                                                             np.float16))
+    payload = {"version": SNAPSHOT_VERSION, "state": _pack_tree(state),
+               "config": config or {}, "meta": meta or {}}
+    Path(path).write_bytes(zlib.compress(msgpack_lite.pack(payload), level))
 
 
 def load_snapshot(path: str | Path) -> dict:

@@ -17,18 +17,21 @@ Semantics (tcnn):
             (x * 1) ^ (y * 2654435761) ^ (z * 805459861)  (mod table_size)
 
 The table is in the "cell" layout: one row per interpolation cell holding
-its 2^D corner vectors.  The hash is uint32 multiply-XOR; torch's uint32
+its 2^D corner vectors.  The "corner" layout, tcnn's vertex table (L, T, F)
+that imported .ingp snapshots keep, is ported for the forward only.  The hash is uint32 multiply-XOR; torch's uint32
 arithmetic is incomplete, so it is computed in int64 and masked to 32 bits
 after every product, which gives the same bits.
 
 The backward (`HashGridEncode`, a torch.autograd.Function) follows the
 reference's default mode, "bf16": each sample's contribution w * g to its
 cell row is rounded to bf16 before it is summed into d_table.  The sum
-itself runs in f32 (`index_add_`), where the reference sums in bf16: bf16
-atomics on the card would add in bf16 and in no fixed order, so the
-reference's bf16 sums cannot be reproduced either way, and its own test
-(tests/test_hashgrid.py::test_bwd_bf16_mode_close) holds bf16 mode to the
-f32 backward within 2 % of the largest gradient, which bounds the gap.
+itself runs in f32, where the reference sums in bf16, and in a fixed order
+(ops/fixed_order.py: the contributions of all levels sorted by row, each
+row's summed pairwise), so that one seed trains to one result on the card
+too.  bf16 sums in a fixed order would not reproduce the reference's
+either, and its own test (tests/test_hashgrid.py::test_bwd_bf16_mode_close)
+holds bf16 mode to the f32 backward within 2 % of the largest gradient,
+which bounds the gap.
 The position gradient d_pos is computed only when pos requires a
 gradient (render mode `normals`).
 """
@@ -40,6 +43,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from sienerf_torch.ops.fixed_order import segment_sum_sorted
 
 _PRIMES = (1, 2654435761, 805459861, 3674653429)
 _U32 = 0xFFFFFFFF
@@ -198,16 +203,63 @@ def _interpolate(config: HashGridConfig, pos: torch.Tensor, level_rows) -> torch
 
 def _require_cell(config: HashGridConfig) -> None:
     if config.layout != "cell":
-        raise NotImplementedError("the corner table layout is not ported yet")
+        raise NotImplementedError(
+            "the corner table layout is ported for the f32 forward only (imported "
+            ".ingp fields); its backward and packed tables are not ported yet")
+
+
+def _geometry_corner(config: HashGridConfig, pos: torch.Tensor):
+    """Corner-layout geometry (tcnn's vertex table): one row per (sample,
+    level, corner).  pos (N, D) in [0,1]^D -> (idx (N, L, 2^D) int64 in
+    [0, T), w (N, L, 2^D) f32)."""
+    L, D = config.n_levels, config.n_dims
+    scales, res, dense, mult = _static_level_data(config)
+    dev = pos.device
+    sc = torch.as_tensor(scales, device=dev)
+    x = pos.float()[:, None, :] * sc[None, :, None] + 0.5  # (N, L, D)
+    x_floor = torch.floor(x)
+    frac = x - x_floor
+    res_m1 = torch.as_tensor((res - 1).astype(np.float32), device=dev)[None, :, None]
+    base = torch.minimum(torch.clamp(x_floor, min=0.0), res_m1).to(torch.int64)
+    offs = torch.as_tensor([[(c >> d) & 1 for d in range(D)] for c in range(1 << D)],
+                           dtype=torch.int64, device=dev)  # (C, D)
+    res_i = torch.as_tensor(res - 1, device=dev)[None, :, None]
+    mult_t = torch.as_tensor(mult, device=dev)  # (L, D)
+    dense_t = torch.as_tensor(dense, device=dev)[None, :, None]
+    idx = None
+    for d in range(D):
+        corner = torch.minimum(base[..., d, None] + offs[None, None, :, d], res_i)
+        term = (corner * mult_t[None, :, None, d]) & _U32
+        idx = term if idx is None else torch.where(dense_t, (idx + term) & _U32, idx ^ term)
+    idx = idx & (config.table_size - 1)
+    f = frac[:, :, None, :]
+    per_dim = torch.where(offs[None, None].bool(), f, 1.0 - f)  # (N, L, C, D)
+    w = per_dim[..., 0]
+    for d in range(1, D):
+        w = w * per_dim[..., d]
+    return idx, w
+
+
+def _encode_corner(config: HashGridConfig, table: torch.Tensor,
+                   pos: torch.Tensor) -> torch.Tensor:
+    """Forward of the corner layout from the f32 (L, T, F) table (or the
+    same flattened to (L, T*F)) -> (N, L*F) f32."""
+    L, F, T = config.n_levels, config.n_features_per_level, config.table_size
+    idx, w = _geometry_corner(config, pos)
+    rows = table.reshape(L, T, F)
+    outs = [(rows[l].index_select(0, idx[:, l].reshape(-1)).reshape(-1, 1 << config.n_dims, F)
+             * w[:, l, :, None]).sum(dim=1) for l in range(L)]
+    return torch.stack(outs, dim=1).reshape(pos.shape[0], L * F)
 
 
 def init_hashgrid_params(config: HashGridConfig, generator: torch.Generator,
                          device=None) -> torch.Tensor:
     """tcnn's initial features: uniform in [-1e-4, 1e-4], shape (L, T, C, F)
-    for the cell layout."""
-    _require_cell(config)
+    for the cell layout, (L, T, F) for the corner layout."""
     shape = (config.n_levels, config.table_size, 1 << config.n_dims,
              config.n_features_per_level)
+    if config.layout != "cell":
+        shape = (config.n_levels, config.table_size, config.n_features_per_level)
     return torch.empty(shape, dtype=torch.float32, device=device).uniform_(
         -1e-4, 1e-4, generator=generator)
 
@@ -239,10 +291,13 @@ class HashGridEncode(torch.autograd.Function):
         idx, w = geo[0], geo[1]
         d_table = d_pos = None
         if ctx.needs_input_grad[0]:
-            d = torch.zeros((L, T, C * F), dtype=torch.float32, device=pos.device)
-            for l in range(L):
-                contrib = (w[:, l, :, None] * gl[:, l, None, :]).reshape(N, C * F)
-                d[l].index_add_(0, idx[:, l], contrib.to(torch.bfloat16).float())
+            # every level's contributions sorted by row once, then each
+            # row's summed pairwise in sorted order: one result per input
+            keys = idx + torch.arange(L, device=pos.device)[None, :] * T  # (N, L)
+            skeys, order = torch.sort(keys.reshape(-1), stable=True)
+            contrib = w.reshape(N * L, C)[order, :, None] * gl.reshape(N * L, F)[order, None, :]
+            contrib = contrib.reshape(N * L, C * F).to(torch.bfloat16).float()
+            d = segment_sum_sorted(contrib, skeys, L * T)
             d_table = d.reshape(table.shape).to(table.dtype)
         if want_pos:
             per_dim = geo[2]
@@ -272,8 +327,12 @@ def hashgrid_encode(config: HashGridConfig, table: torch.Tensor,
                     pos: torch.Tensor) -> torch.Tensor:
     """Encode from the f32 cell table (L, T, C, F), or the same flattened
     to (L, T*C*F); pos (N, D) in [0,1]^D -> (N, L*F) f32.  Differentiable
-    in the table and in pos (HashGridEncode)."""
-    _require_cell(config)
+    in the table and in pos (HashGridEncode).  A corner-layout table
+    (L, T, F) encodes forward only."""
+    if config.layout != "cell":
+        if torch.is_grad_enabled() and (table.requires_grad or pos.requires_grad):
+            _require_cell(config)
+        return _encode_corner(config, table, pos)
     return HashGridEncode.apply(table, pos, config)
 
 

@@ -13,7 +13,10 @@ package's draws.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from sienerf_torch.ops.fixed_order import fixed_cumsum, segment_sum_sorted
 
 
 def init_error_map(n_images: int, res: int = 32, device=None) -> dict:
@@ -21,7 +24,7 @@ def init_error_map(n_images: int, res: int = 32, device=None) -> dict:
         "error": torch.full((n_images, res, res), 1.0, dtype=torch.float32, device=device),
         # a slow decay (half-life ~1400 steps): texels that stop being drawn
         # must not fade to zero before they can be drawn again
-        "decay": 0.9995,
+        "decay": float(np.float32(0.9995)),
     }
 
 
@@ -32,8 +35,9 @@ def splat_errors(emap: dict, img_idx: torch.Tensor, u: torch.Tensor, v: torch.Te
     ex = torch.clamp((u * ew).to(torch.int64), max=ew - 1)
     ey = torch.clamp((v * eh).to(torch.int64), max=eh - 1)
     flat = (img_idx.to(torch.int64) * eh + ey) * ew + ex
-    add = torch.zeros(n_img * eh * ew, dtype=torch.float32, device=losses.device)
-    add = add.index_add(0, flat, losses.float())
+    # summed per texel in a fixed order: one seed, one map on the card too
+    sflat, order = torch.sort(flat, stable=True)
+    add = segment_sum_sorted(losses.float()[order], sflat, n_img * eh * ew)
     err = emap["error"].reshape(-1) * emap["decay"] + add
     return {**emap, "error": err.reshape(n_img, eh, ew)}
 
@@ -63,7 +67,7 @@ def sample_error_map(emap: dict, draws: dict, uniform_frac: float = 0.25):
     n_img, eh, ew = err.shape
 
     per_img = err.sum(dim=(1, 2))
-    cdf_img = torch.cumsum(per_img, dim=0) / per_img.sum()
+    cdf_img = fixed_cumsum(per_img) / per_img.sum()
     img_idx = torch.clamp(_inverse_cdf(cdf_img, draws["u_img"]), max=n_img - 1)
 
     rows = err.sum(dim=2)

@@ -19,6 +19,7 @@ encoding are bf16 values, as in the reference.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import torch
@@ -85,14 +86,60 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
+class _Tap:
+    """mlp_apply's view of tap_roundings: lists that receive each layer's
+    bf16-rounded input and the f32 output (`seen`, `kinds`: "rounded" or
+    "output"), or an iterator of values to use in their place."""
+
+    def __init__(self, replace):
+        self.seen: list[torch.Tensor] = []
+        self.kinds: list[str] = []
+        self._replace = None if replace is None else iter(replace)
+
+    def __call__(self, v: torch.Tensor, kind: str = "rounded") -> torch.Tensor:
+        self.seen.append(v)
+        self.kinds.append(kind)
+        r = None if self._replace is None else next(self._replace, None)
+        if r is None:
+            return v
+        # the given value, with v's gradient path
+        return r.to(v.device) + (v - v.detach())
+
+
+_tap: _Tap | None = None
+
+
+@contextmanager
+def tap_roundings(replace=None):
+    """Within the block, mlp_apply hands the bf16-rounded input of every
+    layer it computes, and its f32 output before the output activation (in
+    call order), to the yielded tap's `seen` list; with `replace`, it uses
+    those tensors' values instead of its own.  The tool that shows which
+    values round the other way on two devices, and how far each moves a
+    result.  A None in `replace`, or its end, keeps the value."""
+    global _tap
+    prev, _tap = _tap, _Tap(replace)
+    try:
+        yield _tap
+    finally:
+        _tap = prev
+
+
+def _rounded(x: torch.Tensor) -> torch.Tensor:
+    h = _bf16(x)
+    return h if _tap is None else _tap(h)
+
+
 def mlp_apply(config: MLPConfig, params: list[torch.Tensor],
               x: torch.Tensor) -> torch.Tensor:
     """x (N, n_input_dims) -> (N, n_output_dims) f32."""
     act = _activation_fn(config.activation)
     out_act = _activation_fn(config.output_activation)
-    h = _bf16(x)
+    h = _rounded(x)
     for i, w in enumerate(params):
         h = h @ _bf16(w)
         if i < len(params) - 1:
-            h = _bf16(act(h))
+            h = _rounded(act(h))
+    if _tap is not None:
+        h = _tap(h, "output")
     return out_act(h).float()

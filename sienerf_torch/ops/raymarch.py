@@ -22,6 +22,7 @@ from dataclasses import dataclass
 import torch
 
 from sienerf_torch.common import MAX_CONE_STEPSIZE, MIN_CONE_STEPSIZE, NERF_GRIDSIZE
+from sienerf_torch.ops.fixed_order import fixed_cumsum, segment_sum_sorted
 from sienerf_torch.ops.occupancy import (
     mip_from_dt,
     mip_from_pos,
@@ -286,11 +287,15 @@ def composite_flat(rgb: torch.Tensor, density: torch.Tensor, ts: torch.Tensor,
     Each sample's exclusive transmittance is exp of one global cumsum c of
     log1p(-alpha) over all M slots minus its value at the ray's first slot,
     as in the reference.  |c| grows with every opaque ray before a sample
-    (each of the M terms is down to log(1e-7) = -16), and a sum's rounding
-    moves T by about |c| * 2^-24 relative, so the cumsum accumulates in
-    float64 on every device (torch's CPU cumsum of f32 does so anyway) and
-    rounds each prefix to f32 once: the card and the CPU then agree, and
-    the reference (XLA sums f32 by a tree) lies within a few ulps of |c|.
+    (each of the M terms is down to log(1e-7) = -16), so c rounded to f32
+    would move T by about |c| * 2^-24 relative, and a last-bit difference
+    of one log1p between two devices could flip that rounding.  The cumsum
+    and the subtraction of the ray's start therefore run in float64 and
+    round once, to the ray's own exponent: the card and the CPU then agree
+    to the f32 ulps of their log1p and exp, and the reference (XLA sums f32
+    by a tree and subtracts in f32) lies within a few ulps of |c|.  The
+    prefix sums and the per-ray sums run in a fixed order
+    (ops/fixed_order.py), so a run repeats bit for bit on the card.
     Differentiable in rgb and density.  -> (rgb_sum (n, 3), opacity (n,),
     T_out (n,), depth (n,), the weighted mean termination distance)."""
     M = ts.shape[0]
@@ -299,20 +304,18 @@ def composite_flat(rgb: torch.Tensor, density: torch.Tensor, ts: torch.Tensor,
     rid = torch.clamp(ray_id, max=n_rays - 1)
     alpha = torch.where(valid, 1.0 - torch.exp(-density * dts), 0.0)
     lg = torch.log1p(-torch.clamp(alpha, max=1.0 - 1e-7))
-    c = torch.cumsum(lg.double(), dim=0).float()
-    c_excl = c - lg
+    lg64 = lg.double()
+    c_excl = fixed_cumsum(lg64) - lg64
     base = c_excl[torch.clamp(ray_start.to(torch.int64)[rid], 0, M - 1)]
-    T_excl = torch.exp(c_excl - base)
+    T_excl = torch.exp((c_excl - base).float())
     keep = valid & (T_excl >= min_transmittance)
     w = torch.where(keep, alpha * T_excl, 0.0)
 
-    def seg(v):
-        out = torch.zeros((n_rays + 1,) + v.shape[1:], dtype=v.dtype, device=v.device)
-        return out.index_add(0, ray_id, v)[:n_rays]
-
-    rgb_sum = seg(w[:, None] * rgb)
-    opacity = seg(w)
-    T_out = torch.exp(seg(torch.where(keep, lg, 0.0)))
+    # the per-ray sums, column by column in one pass
+    cols = torch.cat([w[:, None] * rgb, w[:, None], torch.where(keep, lg, 0.0)[:, None],
+                      (w * ts)[:, None]], dim=1)
+    sums = segment_sum_sorted(cols, ray_id, n_rays + 1)[:n_rays]
+    rgb_sum, opacity, depth = sums[:, :3], sums[:, 3], sums[:, 5]
+    T_out = torch.exp(sums[:, 4])
     T_out = torch.where(T_out < min_transmittance, 0.0, T_out)
-    depth = seg(w * ts)
     return rgb_sum, opacity, T_out, depth

@@ -1,5 +1,6 @@
-"""Low-discrepancy subpixel offsets (port of the Halton part of
-the JAX package's ops/samplers.py), on the host in float32."""
+"""Halton low-discrepancy points (port of the Halton part of the JAX
+package's ops/samplers.py), on the host in float32: subpixel offsets and
+the 2-D set the irradiance probes' multi-origin envmaps use."""
 
 from __future__ import annotations
 
@@ -24,3 +25,9 @@ def ld_pixel_offset(spp: int) -> np.ndarray:
     """Per-pass low-discrepancy subpixel offset in [0, 1)^2."""
     h = np.asarray([halton(spp + 1, 2), halton(spp + 1, 3)], np.float32)
     return h % np.float32(1.0)
+
+
+def halton_2d(indices) -> np.ndarray:
+    """(N,) int indices -> (N, 2) f32 Halton points in bases 2 and 3."""
+    return np.asarray([[halton(i, 2), halton(i, 3)] for i in np.asarray(indices).reshape(-1)],
+                      np.float32).reshape(-1, 2)

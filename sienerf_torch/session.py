@@ -1,34 +1,90 @@
-"""Session façade (port of the NeRF parts of the JAX package's
-session.py::Session): load a NeRF scene and train it, or load a
-render-only snapshot; render live (the streaming ray-marched renderer), or
-bake and render slab-sweep frames.  A trained session renders and bakes
-from the optimizer's EMA shadow of the params."""
+"""Session façade (port of the NeRF and geometry parts of the JAX
+package's session.py::Session): load a NeRF scene and train it, save and
+load training snapshots, load a render-only snapshot or a reference .ingp
+snapshot, or load a geometry scene (meshes and NeRF objects); render live
+(the streaming ray-marched renderer, the default), or bake and render
+slab-sweep frames.  A trained session renders and bakes from the
+optimizer's EMA shadow of the params."""
 
 from __future__ import annotations
 
+import zlib
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from sienerf_torch.common import TestbedMode
+from sienerf_torch.convert import train_state_from_jax, train_state_to_jax
 from sienerf_torch.engines.nerf import NerfEngine
+from sienerf_torch.io import msgpack_lite
 from sienerf_torch.io.nerf_dataset import NerfDataset, load_nerf_dataset
 from sienerf_torch.io.snapshot import (
     grid_config_for_snapshot,
     load_snapshot,
     render_snapshot_from_payload,
+    save_snapshot,
 )
 from sienerf_torch.ops.optim import inference_params
 from sienerf_torch.ops.samplers import ld_pixel_offset
 from sienerf_torch.utils.config import default_configs_dir, load_network_config
 
 
-def _is_nerf_scene(path: Path) -> bool:
-    """A NeRF scene is a directory holding transforms*.json, or a .json
-    file of one."""
-    if path.is_dir():
-        return any(path.glob("transforms*.json"))
-    return path.suffix.lower() == ".json" and "geometry" not in path.name.lower()
+def mode_from_scene(path: str | Path) -> TestbedMode:
+    """The mode a scene path implies: a directory holding transforms*.json
+    or such a file is NeRF, a JSON with "geometry" in its name a geometry
+    scene, an image file image mode, a mesh SDF mode, .nvdb volume mode;
+    a snapshot (.ingp, .snap, .msgpack) is NONE (its content decides)."""
+    p = Path(path)
+    name = str(p).lower()
+    if p.is_dir():
+        if any(p.glob("transforms*.json")):
+            return TestbedMode.NERF
+        raise ValueError(f"scene directory {path} has no transforms*.json (NeRF scenes are "
+                         "directories containing a transforms.json; other modes are files)")
+    if name.endswith("transforms.json"):
+        return TestbedMode.NERF
+    if "geometry" in Path(name).name and name.endswith(".json"):
+        return TestbedMode.GEOMETRY
+    ext = p.suffix.lower()
+    if ext in (".exr", ".png", ".jpg", ".jpeg", ".bin"):
+        return TestbedMode.IMAGE
+    if ext in (".obj", ".stl"):
+        return TestbedMode.SDF
+    if ext == ".nvdb":
+        return TestbedMode.VOLUME
+    if ext == ".json":
+        return TestbedMode.NERF
+    if ext in (".ingp", ".snap", ".msgpack"):
+        return TestbedMode.NONE
+    raise ValueError(f"cannot infer mode from scene {path}")
+
+
+_PEEK_BYTES = 1 << 16
+
+
+def _is_reference_snapshot(path: str | Path) -> bool:
+    """A reference .ingp / msgpack snapshot (its state under "snapshot")
+    rather than the native container (its state under "state").  The top
+    map's keys are read from the file's first 64 KiB, decompressed as far
+    as they go: the first of the two keys decides (each container has only
+    its own), and only when neither shows there is the whole file
+    decoded."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(_PEEK_BYTES)
+        if head[:1] == b"\x78":
+            head = zlib.decompressobj().decompress(head)
+        for key in msgpack_lite.top_keys(head):
+            if key in ("snapshot", "state"):
+                return key == "snapshot"
+        raw = Path(path).read_bytes()
+        if raw[:1] == b"\x78":
+            raw = zlib.decompress(raw)
+        top = msgpack_lite.unpack(raw)
+        return isinstance(top, dict) and "snapshot" in top and "state" not in top
+    except Exception:
+        return False
 
 
 class Session:
@@ -40,7 +96,8 @@ class Session:
         self.configs_dir = Path(configs_dir) if configs_dir else default_configs_dir()
         self.device = torch.device(device)
         self.seed = seed
-        self.engine: NerfEngine | None = None
+        self.mode = TestbedMode.NONE
+        self.engine = None
         self.state: dict | None = None
         self.network_config: dict = {}
         self.training_step = 0
@@ -51,41 +108,71 @@ class Session:
 
     def load_file(self, scene: str | Path, network: str | Path | None = None,
                   **engine_kwargs):
-        """Load a NeRF scene (a directory holding transforms.json, or the
-        file) with the network config `network` (configs/nerf/base.json by
-        default) and start a fresh training state.  Dataset options:
-        downscale, max_images, split; engine options: train_batch_size,
-        grid_size, train_k.  Other modes (image, SDF, volume, geometry) are
-        not ported yet."""
+        """Load a scene: a NeRF scene (a directory holding transforms.json,
+        or the file) with the network config `network`
+        (configs/nerf/base.json by default) and a fresh training state, or
+        a geometry scene JSON, whose snapshot-backed NeRF objects load with
+        it.  Dataset options: downscale, max_images, split; engine options:
+        train_batch_size, grid_size, train_k, near_density_reg,
+        near_reg_fraction (geometry: data_root).  Image, SDF
+        and volume modes are not ported yet."""
         scene = Path(scene)
-        if not _is_nerf_scene(scene):
+        mode = mode_from_scene(scene)
+        if mode in (TestbedMode.IMAGE, TestbedMode.SDF, TestbedMode.VOLUME):
             raise NotImplementedError(
-                f"{scene}: only NeRF scenes (transforms.json) are ported yet; image, SDF, "
-                "volume and geometry modes are Slice F of ROADMAP.md")
+                f"{scene}: {mode.value} mode is not ported yet: Slice F of ROADMAP.md")
+        if mode == TestbedMode.NONE:
+            raise ValueError(f"{scene} is a snapshot: load it with load_snapshot")
         self._baked = None
+        self._scene = scene
+        self._engine_kwargs = dict(engine_kwargs)
+        self.mode = mode
         self.training_step = 0
         self.loss = float("nan")
         self.loss_graph = []
+        if mode == TestbedMode.GEOMETRY:
+            from sienerf_torch.engines.geometry import GeometryEngine
+
+            self.network_config = load_network_config(network) if network else {}
+            self.engine = GeometryEngine.load_scene(scene, device=self.device, **engine_kwargs)
+            self.engine.load_nerf_objects()
+            self.state = {}
+            self._generator = None
+            return self
         cfg_path = Path(network) if network else self.configs_dir / "nerf" / "base.json"
         self.network_config = load_network_config(cfg_path)
         ds = load_nerf_dataset(scene, **{k: v for k, v in engine_kwargs.items()
                                          if k in ("downscale", "max_images", "split")})
         ekw = {k: v for k, v in engine_kwargs.items()
-               if k in ("train_batch_size", "grid_size", "train_k")}
+               if k in ("train_batch_size", "grid_size", "train_k", "near_density_reg",
+                        "near_reg_fraction")}
         self.engine = NerfEngine.create(self.network_config, ds, device=self.device, **ekw)
         self.state = self.engine.init(self.seed)
         self.dataset = ds
         self._generator = torch.Generator(device=self.device).manual_seed(self.seed)
         return self
 
+    def reload_network_from_file(self, network: str | Path | None = None):
+        """Re-read the network config (`network`, or the mode's default) and
+        start the loaded scene's engine and state afresh."""
+        scene = getattr(self, "_scene", None)
+        if scene is None:
+            raise RuntimeError("load_file first")
+        return self.load_file(scene, network=network, **getattr(self, "_engine_kwargs", {}))
+
     def train(self, n_steps: int) -> float:
         """Train in bundles of engine.grid_interval steps until at least
         n_steps have run -> the last bundle's mean loss."""
+        if self.mode == TestbedMode.GEOMETRY:
+            raise RuntimeError("geometry scenes train their NeRF objects separately")
         if self.engine is None:
             raise RuntimeError("load_file first")
         if not self.state.get("opt"):
             raise RuntimeError("cannot train from a render-only snapshot "
                                "(no optimizer state)")
+        if self._generator is None:
+            self._generator = torch.Generator(device=self.device).manual_seed(
+                self.seed + self.training_step)
         done = 0
         while done < n_steps:
             self.state, loss, _ = self.engine.train_bundle(self.state, self._generator)
@@ -103,38 +190,82 @@ class Session:
         opt = self.state.get("opt")
         return inference_params(opt, self.state["params"]) if opt else self.state["params"]
 
-    def load_snapshot(self, path: str | Path):
-        """Load a render-only snapshot and build its engine.
+    # --- snapshots --------------------------------------------------------
 
-        The aabb_scale is 2^(cascades - 1) of the snapshot's occupancy
-        bitfield; the network config is configs/nerf/base.json with its hash
-        grid sized from the snapshot's grid_shape, and the snapshot is
-        checked against both."""
+    def save_snapshot(self, path: str | Path, level: int = 6) -> None:
+        """Write the training state, the network config and meta (mode,
+        training step, aabb_scale, the trainer's phase and measured samples
+        a ray) as a native snapshot, which the JAX package's load_snapshot
+        reads too.  `level` is the zlib level (0 stores: a fox-width state
+        holds 2 GB of floats, which zlib compresses little and slowly)."""
+        if not isinstance(self.engine, NerfEngine) or not self.state.get("opt"):
+            raise RuntimeError("save_snapshot writes a NeRF training state")
+        meta = {"mode": TestbedMode.NERF.value, "training_step": self.training_step,
+                "aabb_scale": float(self.engine.aabb.diag[0])}
+        phase = getattr(self.engine, "_phase", None)
+        if phase is not None:
+            meta["train_phase"] = phase
+        mean = getattr(self.engine, "_mean_samples", None)
+        if mean:
+            meta["mean_samples"] = float(mean)
+        save_snapshot(path, train_state_to_jax(self.state), self.network_config, meta,
+                      level=level)
+
+    def load_snapshot(self, path: str | Path):
+        """Load a snapshot: a reference .ingp / .msgpack (an engine with the
+        corner-layout table it holds), a render-only snapshot (the fox
+        field: aabb_scale 2^(cascades - 1), configs/nerf/base.json with its
+        hash grid sized from the snapshot's grid_shape, both checked), or a
+        native training snapshot with its optimizer state (onto the loaded
+        scene's engine, or one built from the snapshot's config and
+        aabb_scale)."""
         self._baked = None
+        if _is_reference_snapshot(path):
+            self.engine, self.state = NerfEngine.from_ingp(
+                path, dataset=getattr(self, "dataset", None), device=self.device)
+            self.mode = TestbedMode.NERF
+            self.training_step = int(self.state["step"])
+            self._generator = None
+            return {"state": self.state}
         payload = load_snapshot(path)
         meta = payload.get("meta", {})
-        if not str(meta.get("kind", "")).startswith("render_only"):
-            raise NotImplementedError("only render-only snapshots are ported yet")
-        n_casc = int(np.asarray(payload["state"]["occ"]["bitfield"]).shape[0])
-        aabb_scale = float(2 ** (n_casc - 1))
-        cfg = grid_config_for_snapshot(
-            load_network_config(self.configs_dir / "nerf" / "base.json"), meta)
-        params, bitfield, smeta = render_snapshot_from_payload(
-            payload, network_config=cfg, aabb_scale=aabb_scale, device=self.device)
-        self.network_config = cfg
-        self.engine = NerfEngine.create(cfg, NerfDataset.placeholder(aabb_scale),
-                                        device=self.device)
-        self._generator = None
-        self.state = {"params": params, "occ": {"bitfield": bitfield},
-                      "step": smeta["step"]}
-        self.training_step = smeta["step"]
+        self.mode = TestbedMode.NERF
+        if str(meta.get("kind", "")).startswith("render_only"):
+            n_casc = int(np.asarray(payload["state"]["occ"]["bitfield"]).shape[0])
+            aabb_scale = float(2 ** (n_casc - 1))
+            cfg = grid_config_for_snapshot(
+                load_network_config(self.configs_dir / "nerf" / "base.json"), meta)
+            params, bitfield, smeta = render_snapshot_from_payload(
+                payload, network_config=cfg, aabb_scale=aabb_scale, device=self.device)
+            self.network_config = cfg
+            self.engine = NerfEngine.create(cfg, NerfDataset.placeholder(aabb_scale),
+                                            device=self.device)
+            self._generator = None
+            self.state = {"params": params, "occ": {"bitfield": bitfield},
+                          "step": smeta["step"]}
+            self.training_step = smeta["step"]
+            return payload
+        if isinstance(self.engine, NerfEngine):
+            self.state = train_state_from_jax(payload["state"], self.device)
+            _check_state_fits(self.engine, self.state, path)
+            _restore_trainer_meta(self.engine, meta)
+        else:
+            self.network_config = payload.get("config") or {}
+            self.engine, self.state = engine_from_snapshot(payload, path, self.device)
+        self.training_step = int(meta.get("training_step", 0))
+        # a resumed run draws on from the restored step, not from the start
+        self._generator = torch.Generator(device=self.device).manual_seed(
+            self.seed + self.training_step)
         return payload
+
+    # --- rendering --------------------------------------------------------
 
     def bake(self, resolution: int = 256, mode: str = "nearest", row_bits: int = 16):
         """Bake the loaded field into the render-side row table; cached until
         the next bake() or load."""
-        if self.engine is None:
-            raise RuntimeError("load a scene or a snapshot first")
+        if not isinstance(self.engine, NerfEngine):
+            raise RuntimeError("bake() is a NeRF-mode operation: load a NeRF scene or a "
+                               "snapshot first")
         self._baked = self.engine.bake_features(
             self.render_params(), self.state["occ"], resolution=resolution,
             mode=mode, row_bits=row_bits)
@@ -142,21 +273,27 @@ class Session:
 
     @torch.no_grad()
     def render(self, width: int, height: int, camera_matrix=None, focal=None,
-               spp: int = 1, renderer: str = "sweep", **kw) -> torch.Tensor:
+               spp: int = 1, renderer: str = "live", **kw) -> torch.Tensor:
         """Offscreen render -> (H, W, 4) f32 rgba tensor on the session's
-        device.  renderer "sweep" (the default here; the JAX package's
-        default is "live") composites the baked lattice, "live" ray-marches
-        the field itself.  spp > 1 averages passes in float64, each with a
-        low-discrepancy subpixel offset; the sweep adds a stratified
-        slab-phase jitter."""
+        device.  renderer "live" (the default) ray-marches the field itself;
+        "sweep" composites the baked lattice.  spp > 1 averages passes in
+        float64, each with a low-discrepancy subpixel offset; the sweep adds
+        a stratified slab-phase jitter.  A geometry scene renders its live
+        hybrid frame (GeometryEngine.render_frame)."""
+        if self.engine is None:
+            raise RuntimeError("load a scene or a snapshot first")
+        if self.mode == TestbedMode.GEOMETRY:
+            if renderer != "live":
+                raise ValueError(f"renderer={renderer!r} is NeRF-only (mode is geometry)")
+            rgba, _ = self.engine.render_frame(width, height, camera_matrix,
+                                               focal or (width, width), **kw)
+            return rgba
         if renderer == "baked":
             raise NotImplementedError(
                 'renderer "baked" (the baked gather renderer) is not ported yet; '
                 "it comes with Slice E of ROADMAP.md, the rest of ops/baked.py")
         if renderer not in ("sweep", "live"):
             raise ValueError(f"unknown renderer {renderer!r}")
-        if self.engine is None:
-            raise RuntimeError("load a scene or a snapshot first")
         eng = self.engine
         params = self.render_params()
         if camera_matrix is None:
@@ -190,3 +327,53 @@ class Session:
             a = rgba.double()
             acc = a if acc is None else acc + a
         return (acc / spp).float()
+
+
+def engine_from_snapshot(payload: dict, path, device):
+    """The engine and state of a decoded native training snapshot ->
+    (engine, state).  The engine is built from the snapshot's network config
+    and meta["aabb_scale"] (a one-cascade occupancy grid means 1); a table
+    or occupancy grid that does not fit it raises."""
+    meta = payload.get("meta", {})
+    n_casc = int(np.asarray(payload["state"]["occ"]["bitfield"]).shape[0])
+    if "aabb_scale" in meta:
+        aabb_scale = float(meta["aabb_scale"])
+    elif n_casc == 1:
+        aabb_scale = 1.0
+    else:
+        raise ValueError(f"{path}: the snapshot's meta has no aabb_scale and its occupancy "
+                         f"grid has {n_casc} cascades; the scale cannot be told")
+    eng = NerfEngine.create(payload.get("config") or {}, NerfDataset.placeholder(aabb_scale),
+                            grid_size=int(np.asarray(payload["state"]["occ"]["bitfield"]).shape[1]),
+                            device=device)
+    state = train_state_from_jax(payload["state"], device)
+    _check_state_fits(eng, state, path)
+    _restore_trainer_meta(eng, meta)
+    return eng, state
+
+
+def _restore_trainer_meta(eng: NerfEngine, meta: dict) -> None:
+    """The trainer's phase and measured samples a ray, as saved."""
+    if "train_phase" in meta:
+        eng._phase = meta["train_phase"]
+    if meta.get("mean_samples"):
+        eng._mean_samples = float(meta["mean_samples"])
+
+
+def _check_state_fits(eng: NerfEngine, state: dict, path) -> None:
+    """Raise when a snapshot's hash table or occupancy grid does not fit the
+    engine (a mismatched table would render fog, not fail)."""
+    grid = eng.net.grid
+    table = state["params"].get("grid")
+    if grid is not None and table is not None:
+        want = grid.n_levels * grid.table_size * grid.n_features_per_level \
+            * ((1 << grid.n_dims) if grid.layout == "cell" else 1)
+        if table.numel() != want or table.shape[0] != grid.n_levels:
+            raise ValueError(
+                f"{path}: the hash table {tuple(table.shape)} does not fit the network "
+                f"config ({grid.n_levels} levels, 2^{grid.log2_hashmap_size} rows, "
+                f"{grid.n_features_per_level} features)")
+    n_casc, g = (int(x) for x in state["occ"]["bitfield"].shape[:2])
+    if (n_casc, g) != (eng.occ.n_cascades, eng.occ.grid_size):
+        raise ValueError(f"{path}: the occupancy grid has {n_casc} cascades of {g}^3 cells, "
+                         f"the engine {eng.occ.n_cascades} of {eng.occ.grid_size}^3")

@@ -16,6 +16,10 @@ class BoundingBox:
     max: np.ndarray
 
     @staticmethod
+    def unit() -> "BoundingBox":
+        return BoundingBox(np.zeros(3, np.float32), np.ones(3, np.float32))
+
+    @staticmethod
     def from_scale(aabb_scale: float) -> "BoundingBox":
         """NGP convention: box of side `aabb_scale` centred at (0.5, 0.5, 0.5)."""
         c = np.full(3, 0.5, np.float32)
@@ -25,6 +29,12 @@ class BoundingBox:
     @property
     def diag(self) -> np.ndarray:
         return self.max - self.min
+
+    def enlarged(self, other: "BoundingBox") -> "BoundingBox":
+        return BoundingBox(np.minimum(self.min, other.min), np.maximum(self.max, other.max))
+
+    def inflated(self, amount: float) -> "BoundingBox":
+        return BoundingBox(self.min - amount, self.max + amount)
 
     def ray_intersect(self, origin: torch.Tensor, direction: torch.Tensor,
                       eps: float = 1e-12):

@@ -1,5 +1,5 @@
-"""Pinhole camera math (port of the perspective subset of
-the JAX package's utils/camera.py).
+"""Pinhole camera math and the lat-long direction maps (port of the
+perspective subset of the JAX package's utils/camera.py).
 
 Camera matrices follow the NGP convention: a (3, 4) matrix `[R | t]` whose
 columns 0..2 are the camera-frame x/y/z axes in world space and column 3
@@ -8,6 +8,7 @@ the camera origin.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -58,3 +59,20 @@ def look_at_matrix(eye, target, up=(0.0, 1.0, 0.0)) -> np.ndarray:
     right /= np.linalg.norm(right)
     down = np.cross(fwd, right)
     return np.stack([right, down, fwd, eye], axis=1).astype(np.float32)
+
+
+def latlong_to_dir(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Lat-long texture coordinates in [0,1] -> unit directions (..., 3)."""
+    theta = (v - 0.5) * math.pi
+    phi = (u - 0.5) * 2.0 * math.pi
+    st, ct = torch.sin(theta), torch.cos(theta)
+    sp, cp = torch.sin(phi), torch.cos(phi)
+    return torch.stack([sp * ct, st, cp * ct], dim=-1)
+
+
+def dir_to_latlong_uv(d: torch.Tensor) -> torch.Tensor:
+    """Inverse of latlong_to_dir; d (..., 3) need not be normalised."""
+    d = d / torch.sqrt((d * d).sum(dim=-1, keepdim=True))
+    theta = torch.arcsin(torch.clamp(d[..., 1], -1.0, 1.0))
+    phi = torch.atan2(d[..., 0], d[..., 2])
+    return torch.stack([phi / (2.0 * math.pi) + 0.5, theta / math.pi + 0.5], dim=-1)

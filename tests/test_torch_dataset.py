@@ -146,8 +146,11 @@ def test_trained_session_bakes_and_renders_from_the_ema_shadow(tmp_path, monkeyp
 def test_session_refuses_other_modes(tmp_path):
     from sienerf_torch.session import Session
 
-    (tmp_path / "mesh.obj").write_text("v 0 0 0\n")
-    (tmp_path / "scene.geometry.json").write_text("{}")
-    for scene in ("mesh.obj", "scene.geometry.json"):
-        with pytest.raises(NotImplementedError, match="only NeRF"):
+    # SDF, image and volume modes are not ported; geometry scenes are
+    # (tests/test_torch_geometry.py)
+    for scene in ("mesh.obj", "image.png", "cloud.nvdb"):
+        (tmp_path / scene).write_text("v 0 0 0\n")
+        with pytest.raises(NotImplementedError, match="not ported yet"):
             Session(device="cpu").load_file(tmp_path / scene)
+    (tmp_path / "scene.geometry.json").write_text("{}")
+    assert Session(device="cpu").load_file(tmp_path / "scene.geometry.json").engine.objects == []

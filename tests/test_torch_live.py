@@ -333,9 +333,11 @@ def test_unported_parts_raise(what):
         rgba, _ = frame(render_mode=what)
         assert rgba.shape == (8, 8, 4) and bool(torch.isfinite(rgba).all())
     elif what == "envmap":
-        with pytest.raises(NotImplementedError):
-            teng.render_frame(dict(tp, envmap=torch.zeros((4, 8, 4))), torch.from_numpy(bf),
-                              8, 8, _cam(), FOCAL)
+        # ported: the background behind a trained envmap, held to the
+        # reference in tests/test_torch_repairs.py
+        rgba, _ = teng.render_frame(dict(tp, envmap=torch.zeros((4, 8, 4))),
+                                    torch.from_numpy(bf), 8, 8, _cam(), FOCAL)
+        assert rgba.shape == (8, 8, 4) and bool(torch.isfinite(rgba).all())
     elif what == "extra_dims":
         import dataclasses
 
