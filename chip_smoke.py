@@ -38,6 +38,15 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   object and rendered bit-equal; and two training bundles from one seed,
   bit-equal.
 
+- the baked gather path: Session.render(renderer="baked") at 1280x720 from
+  the fox's R=256 bake and its sidecars, through G2 (32-byte vertex rows)
+  and, with fine="brick", G1 (512-byte bricks), both held bit for bit to
+  the plain gathers on the frame's own ids and the frames to the plain
+  frames; the frame timed, counted and split, against the live frame, its
+  knobs at 320x180, a trilinear R=128 bake, 160x90 frames against the CPU;
+  and the hybrid frame with the trained student loaded twice as NeRF
+  objects, rendered through render_rays_baked.
+
 It builds every kernel from the sources in the checkout, holds each against
 its plain PyTorch version on the card, checks the sweep frames against the
 plain-version frames, counts the kernel launches of each path, and times
@@ -82,6 +91,8 @@ LIVE_BIG_TILE = 1 << 17
 # timed 720p live frames at the default tile (20-40 s each: the march is
 # thousands of small launches); one, so that the training phase fits
 LIVE_TIMED = 1
+# timed tile-2^17 live frames: one, so that the baked phase fits the limit
+LIVE_BIG_TIMED = 1
 QUALITY_MIN_DB = 15.0  # a mismatched network config renders fog at ~11 dB
 # the training phase: teacher views on a Fibonacci sphere around the cube
 # centre; every TRAIN_HOLD_EVERY-th (from the middle of the first run) is
@@ -129,6 +140,31 @@ HYBRID_SMALL = (320, 180)
 HYBRID_MIN_AGREE = 0.999
 HIT_MIN_AGREE = 0.999  # BVH vs brute hit masks (edge hits round apart)
 K1_FLOPS_PER_VERTEX = 2 * (32 * 64 + 64 * 64 + 64 * 3)  # the colour MLP
+# the baked phase: 720p frames timed as the median of BAKED_TIMED after two
+# warm-ups; the knobs at BAKED_SMALL against the default knobs (cull coarse,
+# fine row): cull=brick and fine=brick at the JAX package's cull tolerances
+# (tests/test_baked.py:392-398: 5e-2 on rgb, 8e-2 on opacity, mean rgb
+# error under 5e-3).  cull=fine drops the candidates whose own vertex is
+# below the live threshold, which the coarse cover keeps and composites, so
+# on the fox a few pixels move by up to ~0.06 in rgb (0.0541 on the card,
+# 38 of 57,600 pixels above 5e-2 at R=128 on the CPU, the JAX package's
+# frames likewise); it is held to the mean and opacity tolerances and to
+# 0.1 in rgb.  The trilinear cull against no cull: above 35 dB on an R=128
+# bake.  The scout and distance-field advances are printed against the DDA
+# and held to the CPU: on the fox (cone stepping, 3 cascades) the JAX
+# package's own frames sit 17.9-21.4 dB from its DDA frame at R=64 (its
+# 30 dB check is of a one-cascade scene without cone stepping), and the
+# port's equal them (tests/test_torch_baked.py)
+BAKED_TIMED = 5
+BAKED_SMALL = (320, 180)
+BAKED_MIN_DB = 20.0  # baked vs live at 720p: the sweep's level
+CULL_TOL = dict(rgb=5e-2, opacity=8e-2, mean_rgb=5e-3)
+CULL_FINE_MAX_RGB = 0.1
+TRILINEAR_MIN_DB, TRILINEAR_RES = 35.0, 128
+# the baked hybrid: the student loaded twice, at two centres behind the
+# sphere; tile 2^18 rays (per-ray results do not depend on it)
+HYBRID_NERF_CENTERS = ([0.0, 0.0, 0.0], [-0.15, 0.3, 0.2])
+HYBRID_BAKED_TILE = 1 << 18
 K2_FLOPS_PER_SAMPLE = 30  # affine map, texel select, alpha (one exp), carry
 
 
@@ -728,8 +764,294 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
     check(out["roundtrip_equal"], "the reloaded student renders another frame")
     del geo_mem, loaded
 
-    # 9. one seed, one result: two bundles, and two gradients, from one state
+    # 9. the baked hybrid with two NeRF objects (the [baked] phase's part
+    # that needs the trained student)
+    t = time.perf_counter()
+    out["baked"] = baked_hybrid(geo, scene, tr["snapshot"], dev, frame)
+    out["baked"]["phase_s"] = time.perf_counter() - t
+    log(f"[baked] hybrid part in {out['baked']['phase_s']:.1f} s")
+
+    # 10. one seed, one result: two bundles, and two gradients, from one state
     out["determinism"] = determinism_check(tr["engine"], tr["state"], dev)
+    return out
+
+
+def baked_phase(sess, live0, cam, cpu_sess, bake_s, dev) -> dict:
+    """The baked gather renderer on the fox's R=256 bake (the sweep's,
+    which carries every sidecar): the main path Session.render(renderer=
+    "baked") at 1280x720 with the default knobs (G2 on 32-byte vertex rows)
+    and with fine="brick" (G1 on 512-byte bricks), counts from 0; each
+    kernel frame against the plain frame, bit for bit; G2 and G1 on the
+    first round's own ids, bit-equal and timed; the 720p frame timed,
+    counted and split; PSNR / SSIM against the 720p live frame; the knobs
+    at 320x180; a trilinear R=128 bake; and a 160x90 frame against the
+    same code on the CPU."""
+    import torch
+
+    from sienerf_torch import metrics
+    from sienerf_torch.engines.nerf_baked import (
+        BAKED_PHASES,
+        render_frame_baked,
+        render_rays_baked,
+    )
+    from sienerf_torch.ops import baked as baked_ops
+    from sienerf_torch.ops.gather import gather_rows, gather_small
+    from sienerf_torch.tools import bench_gather
+
+    out = {"bake_s": bake_s}
+    grid, meta = sess._baked
+    out["table_bytes"] = {k: int(v.numel() * v.element_size()) for k, v in grid.items()}
+    log(f"[baked] the R={meta['resolution']} bake ({bake_s:.2f} s, every sidecar): "
+        + ", ".join(f"{k} {b / 1e6:.2f} MB" for k, b in out["table_bytes"].items()))
+    check("brows" in grid and "dist3d" in grid and "bits2b" in grid, "the bake lacks a sidecar")
+
+    def frame(w=WIDTH, h=HEIGHT, **kw):
+        img = sess.render(w, h, cam, tuple(f * w / WIDTH for f in FOCAL), renderer="baked",
+                          **kw)
+        torch.cuda.synchronize()
+        return img
+
+    # 1. the main path, counts from 0; the first gather of each row width is
+    # kept (table, ids) for the kernel checks below
+    seen = {}
+    real = baked_ops.gather_table_rows
+
+    def keep_first(table, ids, impl="kernel"):
+        key = table.shape[1] * table.element_size()
+        if key not in seen:
+            seen[key] = (table, baked_ops._row_ids(ids, table.shape[0]).clone())
+        return real(table, ids, impl)
+
+    baked_ops.gather_table_rows = keep_first
+    gather_rows.launches = gather_small.launches = 0
+    main_stats, brick_stats = {}, {}
+    try:
+        t = time.perf_counter()
+        img = frame(stats=main_stats)
+        out["first_frame_s"] = time.perf_counter() - t
+        img_brick = frame(fine="brick", stats=brick_stats)
+    finally:
+        baked_ops.gather_table_rows = real
+    out["launches"] = {"gather_small": gather_small.launches, "gather_rows": gather_rows.launches}
+    log(f"[baked] main path ({WIDTH}x{HEIGHT}, default knobs, then fine=brick): launches "
+        f"{out['launches']}; default {main_stats['rounds']} rounds, {main_stats['ray_rounds']} "
+        f"ray-rounds, {main_stats['evals']} evals, {main_stats['overflows']} overflows; "
+        f"brick {brick_stats['rounds']} rounds, {brick_stats['evals']} evals, "
+        f"{brick_stats['overflows']} overflows")
+    for name, n in out["launches"].items():
+        check(n >= 1, f"kernel {name} was never launched on the baked path")
+    out["counts"] = {k: main_stats[k] for k in ("rounds", "ray_rounds", "evals", "overflows")}
+    for name, got in (("default", img), ("fine=brick", img_brick)):
+        check(got.shape == (HEIGHT, WIDTH, 4) and bool(torch.isfinite(got).all()),
+              f"baked {name} frame: bad shape or non-finite values")
+        check(float(got[..., 3].mean()) > 0.05 and float(got[..., :3].std()) > 1e-3,
+              f"baked {name} frame: empty or constant")
+    plain = frame(impl="plain")
+    plain_brick = frame(fine="brick", impl="plain")
+    out["kernel_equals_plain"] = bool(torch.equal(img, plain) and torch.equal(img_brick,
+                                                                             plain_brick))
+    log(f"[baked] kernel frames vs plain frames (G2 / G1 vs index_select): bit-equal "
+        f"{out['kernel_equals_plain']} (max abs diff {float((img - plain).abs().max()):.3g} / "
+        f"{float((img_brick - plain_brick).abs().max()):.3g})")
+    check(out["kernel_equals_plain"], "the baked kernel frame differs from the plain frame")
+    del plain, plain_brick
+
+    # 2. the gathers on the first round's own ids
+    out["gathers"] = {}
+    for key, tag in ((32, "G2"), (512, "G1")):
+        check(key in seen, f"no {key}-byte gather on the baked path")
+        table, idx = seen[key]
+        if key == 512:
+            table = table.view(torch.int32)
+        r = bench_gather.bench_table(tag, table, idx)
+        out["gathers"][tag] = r
+        log(f"[baked] {bench_gather.format_result(r)}")
+        check(r["equal"], f"{tag} on the frame's ids differs from its plain version")
+    del seen
+
+    # 3. the 720p frame: time, counts, split, kernels a round, quality
+    for _ in range(2):
+        frame()
+    times = []
+    for _ in range(BAKED_TIMED):
+        t = time.perf_counter()
+        frame()
+        times.append(1e3 * (time.perf_counter() - t))
+    out["frame_ms"], out["frame_ms_runs"] = statistics.median(times), times
+    split = {"sync_phases": True}
+    t = time.perf_counter()
+    frame(stats=split)
+    synced = 1e3 * (time.perf_counter() - t)
+    out["split_ms"] = {k: 1e3 * split["phase_s"][k] for k in BAKED_PHASES}
+    out["host_wait_ms"] = 1e3 * main_stats["host_wait_s"]
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        frame()
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    n_kernels = sum(e.count for e in events)
+    g_ms = {e.key: e.self_device_time_total / 1e3 for e in events if "gather_small" in e.key}
+    out["kernels_a_round"] = n_kernels / main_stats["rounds"]
+    out["busy_ms"] = busy_ms if busy_ms > 0 else None
+    out["g2_device_ms"] = sum(g_ms.values()) if busy_ms > 0 else None
+    log(f"[baked] {WIDTH}x{HEIGHT} spp1: median of {BAKED_TIMED} {out['frame_ms']:.1f} ms (runs "
+        f"{[round(x, 1) for x in times]}), first {1e3 * out['first_frame_s']:.1f} ms; "
+        f"{main_stats['rounds']} rounds, host waited {out['host_wait_ms']:.1f} ms for the device")
+    log(f"[baked] where the time goes (one frame, the device synchronised after each part, "
+        f"{synced:.1f} ms): " + ", ".join(f"{k} {v:.1f} ms" for k, v in out["split_ms"].items()))
+    if busy_ms > 0:
+        log(f"[baked] trace: {n_kernels} device kernels ({out['kernels_a_round']:.0f} a round), "
+            f"busy {busy_ms:.1f} ms = {100 * busy_ms / out['frame_ms']:.1f} % of the frame; "
+            f"G2 {out['g2_device_ms']:.3f} ms = {100 * out['g2_device_ms'] / out['frame_ms']:.2f} %"
+            f" of the frame")
+    else:
+        log(f"[baked] trace: {n_kernels} device kernels ({out['kernels_a_round']:.0f} a round); "
+            "device busy share: not measured (the trace holds no device time)")
+    out["psnr_vs_live_db"] = float(metrics.psnr(img[..., :3], live0[..., :3]))
+    out["ssim_vs_live"] = float(metrics.ssim(img[..., :3], live0[..., :3]))
+    log(f"[baked] {WIDTH}x{HEIGHT} baked vs live: PSNR {out['psnr_vs_live_db']:.2f} dB, SSIM "
+        f"{out['ssim_vs_live']:.4f}; mean alpha baked {float(img[..., 3].mean()):.3f} live "
+        f"{float(live0[..., 3].mean()):.3f}")
+    check(out["psnr_vs_live_db"] >= BAKED_MIN_DB,
+          f"baked vs live {out['psnr_vs_live_db']:.2f} dB < {BAKED_MIN_DB}")
+    del img, img_brick
+
+    # 4. the knobs at 320x180 against the default knobs
+    sw, sh = BAKED_SMALL
+    eng, params, bf = sess.engine, sess.render_params(), sess.state["occ"]["bitfield"]
+    fs = tuple(f * sw / WIDTH for f in FOCAL)
+
+    def small(g=grid, m=meta, **kw):
+        rgba, _ = render_frame_baked(eng, params, bf, g, cam, fs, width=sw, height=sh,
+                                     resolution=m["resolution"], mode=m["mode"],
+                                     n_cascades=m["n_cascades"], **kw)
+        return rgba
+
+    base = small()
+    out["knobs"] = {}
+    for name, kw in (("cull=brick", dict(cull="brick")), ("cull=fine", dict(cull="fine")),
+                     ("fine=brick", dict(fine="brick")), ("adv=scout", dict(adv="scout")),
+                     ("adv=dist", dict(adv="dist"))):
+        got = small(**kw)
+        d_rgb = (got[..., :3] - base[..., :3]).abs()
+        d_op = float((got[..., 3] - base[..., 3]).abs().max())
+        db = float(metrics.psnr(got[..., :3], base[..., :3]))
+        k = out["knobs"][name] = {"max_rgb": float(d_rgb.max()), "mean_rgb": float(d_rgb.mean()),
+                                  "max_opacity": d_op, "psnr_db": db}
+        log(f"[baked] {sw}x{sh} {name} vs default: max |rgb| {k['max_rgb']:.3g}, mean "
+            f"{k['mean_rgb']:.3g}, max |opacity| {d_op:.3g}, PSNR {db:.2f} dB")
+        if name.startswith("adv"):
+            check(db > QUALITY_MIN_DB, f"baked {name}: {db:.2f} dB against the default")
+        else:
+            max_rgb = CULL_FINE_MAX_RGB if name == "cull=fine" else CULL_TOL["rgb"]
+            check(k["max_rgb"] <= max_rgb and d_op <= CULL_TOL["opacity"]
+                  and k["mean_rgb"] < CULL_TOL["mean_rgb"],
+                  f"baked {name} leaves the cull tolerance against the default")
+    t = time.perf_counter()
+    tgrid, tmeta = eng.bake_features(params, sess.state["occ"], resolution=TRILINEAR_RES,
+                                     mode="trilinear")
+    torch.cuda.synchronize()
+    out["trilinear_bake_s"] = time.perf_counter() - t
+    nocull = small(tgrid, tmeta, candidates=32, evals=32)
+    culled = small(tgrid, tmeta, candidates=32, evals=12)
+    out["trilinear_psnr_db"] = float(metrics.psnr(culled[..., :3], nocull[..., :3]))
+    log(f"[baked] trilinear R={TRILINEAR_RES} bake {out['trilinear_bake_s']:.2f} s (cell rows "
+        f"{tgrid['rows'].numel() * 2 / 1e9:.2f} GB); {sw}x{sh} culled (12 of 32 evals) vs no "
+        f"cull: PSNR {out['trilinear_psnr_db']:.2f} dB")
+    check(out["trilinear_psnr_db"] > TRILINEAR_MIN_DB, "trilinear cull vs no cull")
+    del tgrid, nocull, culled
+
+    # 5. the card against the CPU at 160x90, on the card's bake: the
+    # default knobs and the two batched advances
+    cw, ch = LIVE_SMALL
+    cpu_sess._baked = ({k: v.cpu() for k, v in grid.items()}, dict(meta))
+    out["cpu_agree"] = {}
+    for name, kw in (("default", {}), ("adv=scout", dict(adv="scout")),
+                     ("adv=dist", dict(adv="dist"))):
+        card = frame(cw, ch, **kw).cpu()
+        t = time.perf_counter()
+        on_cpu = cpu_sess.render(cw, ch, cam, tuple(f * cw / WIDTH for f in FOCAL),
+                                 renderer="baked", **kw)
+        cpu_s = time.perf_counter() - t
+        err = (card - on_cpu).abs()
+        ok = (err <= FRAME_TOL["atol"] + FRAME_TOL["rtol"] * on_cpu.abs()).all(dim=-1)
+        out["cpu_agree"][name] = agree = float(ok.float().mean())
+        log(f"[baked] {cw}x{ch} {name} card vs CPU ({cpu_s:.1f} s on the CPU): "
+            f"{100 * agree:.2f} % of pixels within rtol {FRAME_TOL['rtol']} atol "
+            f"{FRAME_TOL['atol']}, max abs err {float(err.max()):.3g}, PSNR "
+            f"{metrics.psnr(card[..., :3], on_cpu[..., :3]):.2f} dB")
+        check(agree >= LIVE_MIN_AGREE, f"baked {name} frame: card and CPU disagree")
+    cpu_sess._baked = None
+    return out
+
+
+def baked_hybrid(ref_geo, geo_scene: Path, snapshot: Path, dev, frame) -> dict:
+    """The baked hybrid: the student's snapshot loaded twice, at two
+    centres behind the sphere; the 720p frame through render_rays_baked
+    (G2) timed and split, kernel against plain, and the 320x180 baked
+    hybrid against the live hybrid."""
+    import torch
+
+    from sienerf_torch import metrics
+    from sienerf_torch.ops.gather import gather_rows, gather_small
+    from sienerf_torch.session import Session
+
+    scene = json.loads(geo_scene.read_text())
+    scene["geometry"] += [{"type": "Nerf", "path": str(snapshot), "center": c}
+                          for c in HYBRID_NERF_CENTERS]
+    path = geo_scene.with_name("two_nerfs.geometry.json")
+    path.write_text(json.dumps(scene))
+    out = {}
+    t = time.perf_counter()
+    geo = Session(device=dev).load_file(path).engine
+    geo.probe_grid, geo.shade_mode, geo.brdf = ref_geo.probe_grid, "grid", ref_geo.brdf
+    n_nerf = sum(o.kind == "nerf" and o.nerf is not None for o in geo.objects)
+    check(n_nerf == 2, f"the two-NeRF scene loaded {n_nerf} NeRF objects")
+    geo._ensure_nerf_bakes([o for o in geo.objects if o.kind == "nerf"])
+    torch.cuda.synchronize()
+    out["load_and_bake_s"] = time.perf_counter() - t
+    gather_rows.launches = gather_small.launches = 0
+    kw = dict(g=geo, tile=HYBRID_BAKED_TILE)
+    first, _ = frame(renderer="baked", **kw)
+    out["launches"] = {"gather_small": gather_small.launches, "gather_rows": gather_rows.launches}
+    check(out["launches"]["gather_small"] >= 1, "the baked hybrid launched no G2")
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        frame(renderer="baked", **kw)
+        times.append(1e3 * (time.perf_counter() - t))
+    out["frame_ms"], out["frame_ms_runs"] = statistics.median(times), times
+    split = {"sync_phases": True}
+    frame(renderer="baked", stats=split, **kw)
+    out["split_ms"] = {k: 1e3 * v for k, v in split["phase_s"].items()}
+    plain, _ = frame(renderer="baked", impl="plain", **kw)
+    out["kernel_equals_plain"] = bool(torch.equal(first, plain))
+    sw, sh = HYBRID_SMALL
+    sweep_two, _ = frame(sw, sh, renderer="sweep", **kw)  # two NeRF objects: baked
+    out["sweep_routes_baked"] = bool(torch.equal(sweep_two, frame(sw, sh, renderer="baked",
+                                                                  **kw)[0]))
+    log(f"[baked] hybrid, two student NeRFs behind the sphere: scene loaded and baked in "
+        f"{out['load_and_bake_s']:.1f} s; {WIDTH}x{HEIGHT} median of 3 {out['frame_ms']:.1f} ms "
+        f"(runs "
+        f"{[round(x, 1) for x in times]}), launches {out['launches']}; split "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in out["split_ms"].items())
+        + f" (no depth trace: the mesh depth caps each ray); kernel vs plain bit-equal "
+        f"{out['kernel_equals_plain']}; renderer=sweep takes the baked path: "
+        f"{out['sweep_routes_baked']}")
+    check(out["kernel_equals_plain"], "baked hybrid: kernel frame differs from plain")
+    check(out["sweep_routes_baked"], "the two-NeRF sweep frame is not the baked frame")
+    check(bool(torch.isfinite(first).all()), "baked hybrid: non-finite values")
+    del first, plain, sweep_two
+    t = time.perf_counter()
+    live, _ = frame(sw, sh, g=geo, renderer="live")
+    live_s = time.perf_counter() - t
+    baked, _ = frame(sw, sh, renderer="baked", **kw)
+    out["psnr_vs_live_db"] = float(metrics.psnr(baked[..., :3], live[..., :3]))
+    out["ssim_vs_live"] = float(metrics.ssim(baked[..., :3], live[..., :3]))
+    log(f"[baked] hybrid {sw}x{sh}: live {live_s:.2f} s; baked vs live PSNR "
+        f"{out['psnr_vs_live_db']:.2f} dB, SSIM {out['ssim_vs_live']:.4f}")
+    check(out["psnr_vs_live_db"] > QUALITY_MIN_DB, "baked hybrid vs live PSNR too low")
     return out
 
 
@@ -1046,12 +1368,12 @@ def main() -> int:
         + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in phases["phase_s"].items()))
     big_ms, big_stats = [], {}
     big = live_frame(cams[0], tile=LIVE_BIG_TILE)
-    for _ in range(3):
+    for _ in range(LIVE_BIG_TIMED):
         big_stats = {}
         t = time.perf_counter()
         live_frame(cams[0], tile=LIVE_BIG_TILE, stats=big_stats)
         big_ms.append(1e3 * (time.perf_counter() - t))
-    log(f"[live] tile 2^17: median {statistics.median(big_ms):.1f} ms, "
+    log(f"[live] tile 2^17: median of {LIVE_BIG_TIMED} {statistics.median(big_ms):.1f} ms, "
         f"{big_stats['rounds']} rounds, host waited {1e3 * big_stats['host_wait_s']:.1f} ms")
     compare("live frame tile 2^17 vs tile 2^14", big, live0, rtol=0.0, atol=1e-6)
     # the device's busy share of a tile-2^17 frame: the kernels' summed time in
@@ -1172,8 +1494,16 @@ def main() -> int:
         med, k2a = statistics.median(ms), k2_axis_ms[axes[i][0]]
         log(f"[where] view {i} (axis {axes[i][0]}): frame {med:.2f} ms = K1 {k1_ms:.2f} + K2 "
             f"{k2a:.2f} + rest {med - k1_ms - k2a:.2f} ms")
+    # -- 8b. the baked gather renderer: the fox's bake, 720p frames, the
+    # gathers on a frame's ids, the knobs, the card against the CPU
+    del vol, view, frames, big, small, small_cpu
+    torch.cuda.empty_cache()
+    t = time.time()
+    bk = baked_phase(sess, live0, cams[0], cpu_sess, bake_s, dev)
+    bk["phase_s"] = time.time() - t
+    log(f"[baked] phase in {bk['phase_s']:.1f} s")
     # -- 9. the training path: teacher views -> train -> bake -> sweep frames
-    del vol, view, frames, live0, big, small, small_cpu, cpu_sess
+    del live0, cpu_sess
     torch.cuda.empty_cache()
     t = time.time()
     tr = train_phase(sess, dev, cuda_ms)
@@ -1206,13 +1536,19 @@ def main() -> int:
          "hybrid_t_stop_plain_ms": hy["k2_plain_ms"]},
     ]
     for name, tag, r in (("gather_rows", "G1", g1_main), ("gather_small", "G2", g2_main)):
+        fr = bk["gathers"][tag]  # at the baked frame's shapes, on its ids
         kernels.append(
             {"name": name, "route": "cuda", "source": "sienerf_torch/csrc/gather.cu",
              "replaces": REPLACES[name], "launches": launches_probe[name],
              "max_abs_err": 0.0, "ms": r["ms"], "call_ms": r["call_ms"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "library_ms": r["library_ms"], "shape": r["shape"],
-             "ms_by_shape": {x["shape"]: x["ms"] for x in probe if x["name"] == tag}})
+             "ms_by_shape": {x["shape"]: x["ms"] for x in probe if x["name"] == tag},
+             "baked_launches": bk["launches"][name],
+             "baked_launches_hybrid": hy["baked"]["launches"][name],
+             "baked_ms": fr["ms"], "baked_call_ms": fr["call_ms"],
+             "baked_plain_ms": fr["plain_ms"], "baked_bound_ms": fr["bound_ms"],
+             "baked_library_ms": fr["library_ms"], "baked_shape": fr["shape"]})
     log(json.dumps({"frame_ms": frame_med,
                     "frame_ms_by_view": [statistics.median(ms) for ms in frame_ms_by_view],
                     "bake_s": bake_s, "live_frame_ms": live_med,
@@ -1235,7 +1571,15 @@ def main() -> int:
                         "frame_ms", "frame_ms_runs", "split_ms", "probe_bake_s",
                         "first_frame_s", "mesh_cover", "frame_vs_plain_agree",
                         "sweep_vs_live_psnr_db", "sweep_vs_live_ssim", "cpu_agree",
-                        "bvh_frame_ms", "tiers", "roundtrip_equal", "determinism")}}))
+                        "bvh_frame_ms", "tiers", "roundtrip_equal", "determinism")},
+                    "baked": {k: bk[k] for k in (
+                        "frame_ms", "frame_ms_runs", "first_frame_s", "counts", "split_ms",
+                        "host_wait_ms", "kernels_a_round", "busy_ms", "g2_device_ms",
+                        "psnr_vs_live_db", "ssim_vs_live", "knobs", "trilinear_bake_s",
+                        "trilinear_psnr_db", "cpu_agree", "table_bytes", "phase_s")},
+                    "baked_hybrid": {k: hy["baked"][k] for k in (
+                        "frame_ms", "frame_ms_runs", "split_ms", "load_and_bake_s",
+                        "psnr_vs_live_db", "ssim_vs_live", "phase_s")}}))
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

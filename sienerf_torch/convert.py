@@ -1,10 +1,11 @@
 """Carry weights, training states and bakes across from the JAX package's
 numpy form.
 
-The JAX package packs fp8 and bf16 table rows as f32 bitcasts and int16
-bake rows as int32 pairs for its TPU gathers; the port keeps the bytes in
-their own types.  These helpers take plain numpy arrays (no JAX import) so the same
-field can feed both packages.
+The JAX package packs fp8 and bf16 table rows as f32 bitcasts, int16 and
+int8 bake rows as int32 lanes and bit sidecars as uint32 for its TPU
+gathers; the port keeps the bytes in their own types.  These helpers take
+plain numpy arrays (no JAX import) so the same field can feed both
+packages.
 """
 
 from __future__ import annotations
@@ -52,16 +53,29 @@ def params_from_jax(np_params: dict,
     return out
 
 
-def bake_from_jax(grid: dict, device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
-    """JAX bake {"rows": (N, F/2) int32 int16-pairs, "scale"} -> the port's
-    {"rows": (N, F) int16, "scale": (K, F) f32} (little-endian pairs, as
-    the JAX bitcast lays them out)."""
-    rows = np.ascontiguousarray(np.asarray(grid["rows"]))
-    if rows.dtype != np.int32:
-        raise ValueError(f"expected int32-packed rows, got {rows.dtype}")
-    i16 = rows.view("<i2").reshape(rows.shape[0], rows.shape[1] * 2)
-    return {"rows": torch.from_numpy(np.array(i16)).to(device),
-            "scale": torch.from_numpy(np.array(np.asarray(grid["scale"], np.float32))).to(device)}
+def baked_grid_from_jax(grid: dict,
+                        device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """A JAX bake as numpy -> the port's.  Row tables ("rows": vertex rows,
+    or cell rows of a trilinear bake; "brows": brick rows) are int32 lanes
+    holding int16 pairs or int8 quads (little-endian, as the JAX bitcast
+    lays them out) and become int16 / int8 rows of their values; the
+    uint32 bit and byte sidecars keep their bits as int32; the scale stays
+    f32."""
+    out = {}
+    for k, v in grid.items():
+        a = np.ascontiguousarray(np.asarray(v))
+        if k in ("rows", "brows"):
+            if a.dtype != np.int32:
+                raise ValueError(f"{k}: expected int32-packed rows, got {a.dtype}")
+            n_vert = 16 if k == "brows" else (1 if a.shape[1] in (4, 8) else 8)
+            width = a.shape[1] * 4 // (n_vert * 16)  # bytes a value
+            a = a.view("<i2" if width == 2 else np.int8).reshape(a.shape[0], -1)
+        elif a.dtype == np.uint32:
+            a = a.view(np.int32)
+        elif k == "scale":
+            a = a.astype(np.float32)
+        out[k] = torch.from_numpy(np.array(a)).to(device)
+    return out
 
 
 def train_state_from_jax(np_state: dict,

@@ -17,10 +17,15 @@ Per frame:
 - renderer="live": each NeRF object is ray-marched with its far bound
   clamped to the mesh depth, and blended over the mesh where it lies in
   front;
-- renderer="sweep" (exactly one NeRF object): the NeRF's baked lattice is
-  shaded by K1 and composited by K2 with a per-pixel stop t_stop, the
-  euclidean distance to the mesh along each direction of the sweep's
-  intermediate image, then blended over the mesh by the same rule.
+- renderer="baked" (the interactive hybrid path): each NeRF object's bake
+  is rendered by the baked gather renderer with the same far bound
+  (engines/nerf_baked.py::render_rays_baked), and blended by the same
+  rule;
+- renderer="sweep" (exactly one NeRF object; with more it takes the baked
+  path): the NeRF's baked lattice is shaded by K1 and composited by K2
+  with a per-pixel stop t_stop, the euclidean distance to the mesh along
+  each direction of the sweep's intermediate image, then blended over the
+  mesh by the same rule.
 
 Depth units: the mesh pass returns z-depth t / |d| for camera rays whose
 direction has z = 1 in the camera frame; K2's depth is euclidean and is
@@ -301,42 +306,60 @@ class GeometryEngine:
                      stats: dict | None = None):
         """Hybrid frame -> (rgba (H, W, 4), z-depth (H, W)) on the engine's
         device.  The mesh pass writes colour and depth; each NeRF object is
-        blended over it where it lies in front ("live": its march stops at
-        the mesh; "sweep": its baked lattice through K1 and K2 with the
-        mesh's t_stop, for exactly one NeRF object).  `tile` rays are
-        marched at a time; per-ray results do not depend on it.  `impl`
-        ("kernel" or "plain") and `stats` apply to the sweep: `stats`
-        receives the sweep axis and flip, the mesh's t_stop, the shaded
-        volume, the intermediate grid (o_c, eb, ec, near, min
-        transmittance) and the composite (C, opacity, T, depth), so that a
-        caller can hold the kernels to their plain versions on this frame's
-        inputs, and, with stats["sync_phases"] set, the seconds of
-        HYBRID_PHASES."""
+        blended over it where it lies in front, its march stopped at the
+        mesh: "live" marches the field; "baked" gathers each object's bake
+        (render_rays_baked, the interactive hybrid path); "sweep" takes its
+        baked lattice through K1 and K2 with the mesh's t_stop when there is
+        exactly one NeRF object, and the baked path otherwise.  `tile` rays
+        are rendered at a time; per-ray results do not depend on it.
+        `impl` ("kernel" or "plain") chooses the hand-written kernels or
+        their plain versions on the card (K1 and K2 of the sweep, G1 and G2
+        of the baked path).  `stats` applies to the sweep: it receives the
+        sweep axis and flip, the mesh's t_stop, the shaded volume, the
+        intermediate grid (o_c, eb, ec, near, min transmittance) and the
+        composite (C, opacity, T, depth), so that a caller can hold the
+        kernels to their plain versions on this frame's inputs, and, with
+        stats["sync_phases"] set, the seconds of HYBRID_PHASES; on the baked
+        path it receives the seconds of "mesh" and "nerf"."""
         nerf_objs = [o for o in self.objects if o.kind == "nerf" and o.nerf is not None]
         if renderer == "sweep" and len(nerf_objs) == 1:
             return self._render_frame_hybrid_sweep(width, height, camera_matrix,
                                                    focal_length, background, nerf_objs[0],
                                                    impl, stats)
-        if renderer in ("sweep", "baked"):
-            raise NotImplementedError(
-                f'renderer "{renderer}" with {len(nerf_objs)} NeRF objects needs the baked '
-                "gather renderer (render_rays_baked), which comes with Slice E of ROADMAP.md")
-        if renderer != "live":
+        if renderer == "sweep":
+            renderer = "baked"  # the sweep takes exactly one NeRF object
+        if renderer not in ("live", "baked"):
             raise ValueError(f"unknown renderer {renderer!r}")
+        if impl not in ("kernel", "plain"):
+            raise ValueError(f"unknown impl {impl!r}")
+        from sienerf_torch.engines.nerf import _PhaseClock
+        from sienerf_torch.engines.nerf_baked import render_rays_baked
+
         dev = self.device
+        clock = _PhaseClock(stats, dev, ("mesh", "nerf"))
+        bakes = self._ensure_nerf_bakes(nerf_objs) if renderer == "baked" else \
+            [None] * len(nerf_objs)
         o, d = self._frame_rays(width, height, camera_matrix, focal_length, dev)
         geom = self._geom_dict()
         rgb, depth, alpha = self._mesh_or_empty(geom, o, d)
-        for obj in nerf_objs:
+        clock.phase("mesh")
+        for obj, bake in zip(nerf_objs, bakes):
             params = inference_params(obj.nerf_state.get("opt") or {},
                                       obj.nerf_state["params"])
             bf = obj.nerf_state["occ"]["bitfield"]
             center = torch.as_tensor(np.asarray(obj.center, np.float32), device=dev)
-            parts = [obj.nerf.render_rays(params, bf, o[s:s + tile] - center, d[s:s + tile],
-                                          t_cap=depth[s:s + tile])
-                     for s in range(0, o.shape[0], tile)]
+            parts = []
+            for s in range(0, o.shape[0], tile):
+                oo, dd, cap = o[s:s + tile] - center, d[s:s + tile], depth[s:s + tile]
+                if bake is None:
+                    parts.append(obj.nerf.render_rays(params, bf, oo, dd, t_cap=cap))
+                else:
+                    parts.append(render_rays_baked(
+                        obj.nerf, params, bake[0], bake[1], bf, oo, dd, P=64, evals=16,
+                        step_scale=4.0, t_cap=cap, impl=impl))
             n_rgb, n_op, n_depth = (torch.cat(x) for x in zip(*parts))
             rgb, alpha, depth = _blend_over(rgb, alpha, depth, n_rgb, n_op, n_depth)
+        clock.phase("nerf")
         bg = torch.as_tensor(np.asarray(background, np.float32), device=dev)
         rgb = rgb + (1.0 - alpha)[:, None] * bg
         rgba = torch.cat([rgb, alpha[:, None]], dim=-1)

@@ -961,17 +961,18 @@ class NerfEngine:
             used=s["used"] + counts,
         )
         clock.phase("composite")
-        s2 = self._frame_flush_refill(s, s2, n, rays_pre, render_mode)
+        s2 = self._frame_flush_refill(s, s2, n, rays_pre, self._frame_alive, render_mode)
         clock.phase("flush")
         return s2
 
-    def _frame_flush_refill(self, s, s2, n, rays_pre, render_mode=None):
-        """Tail of a round: write finished rays to the frame's output rows,
-        then refill their slots from the pixel stream.  The output table is
-        updated in place.  Ray ids are unique and every slot with nothing
-        to flush writes row n, which is sliced off, so the scatter needs no
-        ordering."""
-        now_alive = self._frame_alive(s2)
+    def _frame_flush_refill(self, s, s2, n, rays_pre, alive_fn, render_mode=None):
+        """Tail of a round, shared with the baked renderer
+        (engines/nerf_baked.py): write the rays that `alive_fn` finds
+        finished to the frame's output rows, then refill their slots from
+        the pixel stream.  The output table is updated in place.  Ray ids
+        are unique and every slot with nothing to flush writes row n, which
+        is sliced off, so the scatter needs no ordering."""
+        now_alive = alive_fn(s2)
         done = s["valid"] & ~now_alive
         tgt = torch.where(done, s["ids"], n)
         colour = s2["rgb"]

@@ -12,10 +12,8 @@ sees.  The random cells and positions are drawn apart from the update
 (`draw_density_update`), so that a caller can hand in another package's
 draws.
 
-The march loops probe a packed form of the grid, 32 cells to a word.  The
-JAX package holds the words as uint32; torch's uint32 arithmetic is
-incomplete, so here they are int32 with the same bits (bit i of word w is
-flat cell w*32 + i), and a probe shifts and masks."""
+The march loops probe a packed form of the grid, 32 cells to a word
+(ops/bits.py: int32 words with the JAX package's uint32 bits)."""
 
 from __future__ import annotations
 
@@ -26,6 +24,7 @@ import numpy as np
 import torch
 
 from sienerf_torch.common import MIN_CONE_STEPSIZE, NERF_GRIDSIZE, NERF_MIN_OPTICAL_THICKNESS
+from sienerf_torch.ops.bits import lookup_bits, pack_bits
 
 
 def n_cascades_for_aabb_scale(aabb_scale: float) -> int:
@@ -220,22 +219,8 @@ def mip_from_dt(dt: torch.Tensor, n_cascades: int, grid_size: int) -> torch.Tens
 
 def pack_occupancy(bitfield: torch.Tensor) -> torch.Tensor:
     """(C, G, G, G) bool -> (ceil(C*G^3 / 128), 4) int32 probe table: the
-    JAX package's row-packed uint32 words, bit for bit."""
-    flat = bitfield.reshape(-1)
-    pad = (-flat.shape[0]) % 128
-    if pad:
-        flat = torch.cat([flat, flat.new_zeros(pad)])
-    weights = torch.ones((), dtype=torch.int64, device=flat.device) << torch.arange(
-        32, dtype=torch.int64, device=flat.device)
-    words = (flat.reshape(-1, 4, 32).to(torch.int64) * weights).sum(dim=2)
-    # values >= 2^31 wrap to the negative int32 with the same bits
-    return torch.where(words >= (1 << 31), words - (1 << 32), words).to(torch.int32)
-
-
-def lookup_bits(words: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
-    """Packed-bit test: flat bit ids (int64) -> bool."""
-    w = words.reshape(-1)[flat >> 5]
-    return ((w >> (flat & 31).to(torch.int32)) & 1).bool()
+    JAX package's row-packed uint32 words, bit for bit (ops/bits.py)."""
+    return pack_bits(bitfield.reshape(-1))
 
 
 def occupancy_lookup_packed(words: torch.Tensor, grid_size: int, pos: torch.Tensor,

@@ -3,7 +3,7 @@ package's session.py::Session): load a NeRF scene and train it, save and
 load training snapshots, load a render-only snapshot or a reference .ingp
 snapshot, or load a geometry scene (meshes and NeRF objects); render live
 (the streaming ray-marched renderer, the default), or bake and render
-slab-sweep frames.  A trained session renders and bakes from the
+slab-sweep frames or baked gather frames.  A trained session renders and bakes from the
 optimizer's EMA shadow of the params."""
 
 from __future__ import annotations
@@ -261,8 +261,8 @@ class Session:
     # --- rendering --------------------------------------------------------
 
     def bake(self, resolution: int = 256, mode: str = "nearest", row_bits: int = 16):
-        """Bake the loaded field into the render-side row table; cached until
-        the next bake() or load."""
+        """Bake the loaded field into the render-side row table and its
+        sidecars; cached until the next bake(), load or training bundle."""
         if not isinstance(self.engine, NerfEngine):
             raise RuntimeError("bake() is a NeRF-mode operation: load a NeRF scene or a "
                                "snapshot first")
@@ -276,10 +276,13 @@ class Session:
                spp: int = 1, renderer: str = "live", **kw) -> torch.Tensor:
         """Offscreen render -> (H, W, 4) f32 rgba tensor on the session's
         device.  renderer "live" (the default) ray-marches the field itself;
-        "sweep" composites the baked lattice.  spp > 1 averages passes in
-        float64, each with a low-discrepancy subpixel offset; the sweep adds
-        a stratified slab-phase jitter.  A geometry scene renders its live
-        hybrid frame (GeometryEngine.render_frame)."""
+        "sweep" composites the baked lattice; "baked" gathers the bake's rows
+        along candidate chains (engines/nerf_baked.py).  Both baked renderers
+        bake once (bake_resolution, bake_mode) and keep the bake.  spp > 1
+        averages passes in float64, each with a low-discrepancy subpixel
+        offset; the sweep adds a stratified slab-phase jitter and the baked
+        renderer a stratified chain-phase jitter.  A geometry scene renders
+        its live hybrid frame (GeometryEngine.render_frame)."""
         if self.engine is None:
             raise RuntimeError("load a scene or a snapshot first")
         if self.mode == TestbedMode.GEOMETRY:
@@ -288,11 +291,7 @@ class Session:
             rgba, _ = self.engine.render_frame(width, height, camera_matrix,
                                                focal or (width, width), **kw)
             return rgba
-        if renderer == "baked":
-            raise NotImplementedError(
-                'renderer "baked" (the baked gather renderer) is not ported yet; '
-                "it comes with Slice E of ROADMAP.md, the rest of ops/baked.py")
-        if renderer not in ("sweep", "live"):
+        if renderer not in ("sweep", "live", "baked"):
             raise ValueError(f"unknown renderer {renderer!r}")
         eng = self.engine
         params = self.render_params()
@@ -304,22 +303,29 @@ class Session:
         focal = tuple(np.asarray(focal, np.float32))
         bake_res = kw.pop("bake_resolution", 256)
         bake_mode = kw.pop("bake_mode", "nearest")
-        if renderer == "sweep" and self._baked is None:
+        if renderer != "live" and self._baked is None:
             self.bake(resolution=bake_res, mode=bake_mode)
+        from sienerf_torch.engines.nerf_baked import render_frame_baked
         from sienerf_torch.engines.nerf_sweep import render_frame_sweep
 
         spp = max(int(spp), 1)
         acc = None
         for i in range(spp):
             off = ld_pixel_offset(i) if spp > 1 else None
+            phase = np.float32((i + 0.5) / spp) if spp > 1 else None
             if renderer == "sweep":
                 grid, meta = self._baked
                 out5 = render_frame_sweep(
                     eng, params, grid, meta, cam, focal, width=width,
-                    height=height, pixel_offset=off,
-                    axis_phase=np.float32((i + 0.5) / spp) if spp > 1 else None,
-                    packed=True, **kw)
+                    height=height, pixel_offset=off, axis_phase=phase, packed=True, **kw)
                 rgba = out5[:4].permute(1, 2, 0)
+            elif renderer == "baked":
+                grid, meta = self._baked
+                rgba, _ = render_frame_baked(
+                    eng, params, self.state["occ"]["bitfield"], grid, cam, focal,
+                    width=width, height=height, resolution=meta["resolution"],
+                    mode=meta["mode"], n_cascades=meta["n_cascades"], pixel_offset=off,
+                    t_phase=phase, **kw)
             else:
                 rgba, _ = eng.render_frame(
                     params, self.state["occ"]["bitfield"], width, height,

@@ -225,6 +225,32 @@ def bench_g2(t: int, c: int, dtype: torch.dtype, n: int, device,
                    c * table.element_size(), timed, plain_ms, library_ms, write_ms, equal)
 
 
+def bench_table(name: str, table: torch.Tensor, idx: torch.Tensor, reps: int = 20) -> dict:
+    """A caller's table and indices (a frame's own): G1 for an int32
+    (T, 128) table of 512-byte rows, else G2; timed, held to the plain
+    version and beside one index_select, as the probe's shapes are."""
+    if table.dtype == torch.int32 and table.shape[1] == ROW_LANES:
+        kernel, fn, plain = "gather_rows", (lambda: gather_rows(table, idx)), \
+            (lambda: gather_rows_plain(table, idx))
+    else:
+        kernel, fn, plain = "gather_small", (lambda: gather_small(table, idx)), \
+            (lambda: gather_small_plain(table, idx))
+    got = fn()
+    torch.cuda.synchronize()
+    equal = torch.equal(got.reshape(idx.shape[0], -1), plain().reshape(idx.shape[0], -1))
+    del got
+    n, row_bytes = idx.shape[0], table.shape[1] * table.element_size()
+    timed = time_kernel(fn, kernel, reps)
+    plain_ms = burst_ms(plain, reps)[0]
+    library_ms = burst_ms(lambda: torch.index_select(table, 0, idx), reps)[0]
+    write_ms = burst_ms(lambda: torch.empty((n, table.shape[1]), dtype=table.dtype,
+                                            device=table.device).zero_(), reps)[0]
+    shape = (f"T={table.shape[0]} ({table.shape[0] * row_bytes / 1e9:.2f} GB) "
+             f"{row_bytes}-byte rows N={n}")
+    return _result(name, shape, idx, n, 1, row_bytes, timed, plain_ms, library_ms, write_ms,
+                   equal)
+
+
 def format_result(r: dict) -> str:
     rate = r["rows"] / (r["ms"] * 1e-3)
     trace = "not measured" if r["trace_ms"] is None else f"{r['trace_ms']:.4f} ms"

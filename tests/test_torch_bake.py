@@ -83,14 +83,14 @@ def test_bake_r16_matches_reference():
     import jax.numpy as jnp
 
     from sienerf_tpu.ops.baked import quantize_rows as jax_quantize
-    from sienerf_torch.convert import bake_from_jax
+    from sienerf_torch.convert import baked_grid_from_jax
     from sienerf_torch.ops.mlp import mlp_apply
 
     jgrid, jmeta = fox_jax_bake(R)
     s = fox_port_session()
     grid, meta = s.engine.bake_features(s.state["params"], s.state["occ"], resolution=R)
     assert meta == jmeta
-    ref = bake_from_jax(jgrid, device="cpu")
+    ref = baked_grid_from_jax(jgrid, device="cpu")
     assert grid["rows"].dtype == torch.int16 and grid["rows"].shape == (3 * Rv ** 3, 16)
     np.testing.assert_allclose(grid["scale"].numpy(), ref["scale"].numpy(), rtol=1e-6, atol=0)
     rows, jrows = grid["rows"].numpy().astype(np.int32), ref["rows"].numpy().astype(np.int32)

@@ -65,9 +65,9 @@ def test_session_sweep_frame_matches_reference(eye, spp):
 
 @pytest.mark.parametrize("eye", list(EYES))
 def test_frame_on_reference_bake_matches(eye):
-    """Same bake in both packages (bake_from_jax): only the renderers differ."""
+    """Same bake in both packages (baked_grid_from_jax): only the renderers differ."""
     from sienerf_tpu.engines.nerf_sweep import render_frame_sweep as jax_frame
-    from sienerf_torch.convert import bake_from_jax
+    from sienerf_torch.convert import baked_grid_from_jax
     from sienerf_torch.engines.nerf_sweep import render_frame_sweep
 
     jeng, jparams, _ = fox_jax()
@@ -78,7 +78,7 @@ def test_frame_on_reference_bake_matches(eye):
                                       axis_phase=np.float32(0.25))
     s = fox_port_session()
     rgba, depth = render_frame_sweep(s.engine, s.state["params"],
-                                     bake_from_jax(jgrid, device="cpu"), meta, cam,
+                                     baked_grid_from_jax(jgrid, device="cpu"), meta, cam,
                                      FOCAL, width=W, height=H, min_transmittance=1e-4,
                                      axis_phase=np.float32(0.25))
     np.testing.assert_allclose(rgba.numpy(), np.asarray(want_rgba), rtol=2e-2, atol=5e-3)

@@ -4,7 +4,8 @@ rays and BRDF shading under each ambient source (constant sky light, an
 irradiance envmap, the probe grid, and the checkerboard floor), and the
 hybrid frame with the tiny seeded NeRF of tests/test_torch_live.py behind
 a box that hides part of it: the live hybrid and the sweep hybrid (K1 and
-K2 with the mesh's t_stop; their plain versions here), as
+K2 with the mesh's t_stop; their plain versions here; the baked hybrid is
+tests/test_torch_baked_hybrid.py), as
 tests/test_geometry_mode.py::test_hybrid_sweep_renderer_depth_stop checks
 the reference, with the live renderer in place of "baked" in (c).  Then
 the Session in geometry mode, with a NeRF object loaded from a native
@@ -158,12 +159,12 @@ def hybrid_frames():
     tg.objects.append(to)
     out["live"] = (jg.render_frame(W, W, cam, FOCAL, tile=W * W),
                    tg.render_frame(W, W, cam, FOCAL, tile=1000))
-    from sienerf_torch.convert import bake_from_jax
+    from sienerf_torch.convert import baked_grid_from_jax
 
     grid, meta = jo.nerf.bake_features(jo.nerf_state["params"], jo.nerf_state["occ"],
                                        resolution=16)
     jo._bake = (grid, meta)
-    to._bake = (bake_from_jax(jax.tree.map(np.asarray, grid), "cpu"), dict(meta))
+    to._bake = (baked_grid_from_jax(jax.tree.map(np.asarray, grid), "cpu"), dict(meta))
     out["sweep"] = (jg.render_frame(W, W, cam, FOCAL, tile=W * W, renderer="sweep"),
                     tg.render_frame(W, W, cam, FOCAL, renderer="sweep"))
     tg.brute_dev = None
@@ -205,11 +206,19 @@ def test_sweep_hybrid_matches_and_stops_at_the_mesh():
 
 
 def test_unported_renderers_raise():
-    _, tg = engines()
-    with pytest.raises(NotImplementedError, match="Slice E"):
-        tg.render_frame(8, 8, _cam(), FOCAL, renderer="baked")
-    with pytest.raises(NotImplementedError, match="Slice E"):
-        tg.render_frame(8, 8, _cam(), FOCAL, renderer="sweep")  # no NeRF object
+    """renderer="baked", and "sweep" without a NeRF object (which takes the
+    baked path), render the mesh alone now (Slice E), as the reference
+    does, under the live frame's rule; an unknown renderer still raises."""
+    jg, tg = engines()
+    from test_torch_baked import hold_frame
+
+    want, wd = jg.render_frame(16, 16, _cam(), FOCAL, renderer="baked")
+    got, gd = tg.render_frame(16, 16, _cam(), FOCAL, renderer="baked")
+    hold_frame(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(np.isfinite(gd.numpy()), np.isfinite(np.asarray(wd)))
+    sweep, _ = tg.render_frame(16, 16, _cam(), FOCAL, renderer="sweep")  # no NeRF object
+    assert torch.equal(sweep, got)
+    assert 0.05 < float(got[..., 3].mean()) < 0.95
     with pytest.raises(ValueError):
         tg.render_frame(8, 8, _cam(), FOCAL, renderer="raster")
 

@@ -1,6 +1,7 @@
-"""The CUDA kernels K1 (shade), K2 (sweep composite), G1 and G2 (the gather
-probe's row gathers) against their plain PyTorch versions, and the rule
-that a kernel wrapper never falls back.
+"""The CUDA kernels K1 (shade), K2 (sweep composite), G1 and G2 (the row
+gathers of the gather probe and of the baked renderer) against their plain
+PyTorch versions, the baked frame through them against the plain frame,
+and the rule that a kernel wrapper never falls back.
 
 Tests marked `cuda` need an NVIDIA card and nvcc; they skip elsewhere.
 This file imports no JAX, so on the card it runs without the repo's
@@ -510,3 +511,72 @@ def test_hybrid_frame_kernels_match_plain_with_a_mesh_t_stop(cuda, tmp_path):
     for g, w in zip(stats["composite"], want):
         torch.testing.assert_close(g, w.contiguous(), rtol=1e-4, atol=2e-4)
     torch.testing.assert_close(a, b, rtol=2e-2, atol=5e-3)
+
+
+# --- the baked gather renderer (G2 and G1 on the frame's own rows) ---------
+
+
+def _fox_baked_session(device, resolution=32, mode="nearest"):
+    from sienerf_torch.session import Session
+
+    s = Session(device=device)
+    s.load_snapshot(FOX)
+    s._baked = s.engine.bake_features(s.render_params(), s.state["occ"],
+                                      resolution=resolution, mode=mode)
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,knobs", [("nearest", {}), ("nearest", {"fine": "brick"}),
+                                        ("trilinear", {})])
+def test_baked_frame_kernel_equals_plain(cuda, mode, knobs):
+    """The baked frame through G2 (and G1 for bricks) equals the frame with
+    the plain gathers bit for bit; the wrappers count their launches."""
+    from sienerf_torch.utils.camera import look_at_matrix
+
+    s = _fox_baked_session(cuda, mode=mode)
+    cam = look_at_matrix([2.1, 0.5, 0.6], [0.5, 0.5, 0.5])
+    n0 = (gather_small.launches, gather_rows.launches)
+    a = s.render(96, 64, cam, (70.0, 70.0), renderer="baked", **knobs)
+    n1 = (gather_small.launches, gather_rows.launches)
+    b = s.render(96, 64, cam, (70.0, 70.0), renderer="baked", impl="plain", **knobs)
+    assert (gather_small.launches, gather_rows.launches) == n1
+    if knobs.get("fine") == "brick":
+        assert n1[1] > n0[1] and n1[0] == n0[0]
+    else:
+        assert n1[0] > n0[0] and n1[1] == n0[1]
+    assert torch.equal(a, b)
+    assert float(a[..., 3].mean()) > 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fine", ["row", "brick"])
+def test_gathers_on_the_frame_index_streams(cuda, monkeypatch, fine):
+    """G2 on the vertex rows and G1 on the 512-byte bricks that a baked
+    frame gathers, bit-equal to the plain versions, one launch a call."""
+    from sienerf_torch.ops import baked as baked_ops
+    from sienerf_torch.utils.camera import look_at_matrix
+
+    s = _fox_baked_session(cuda)
+    seen = []
+    real = baked_ops.gather_table_rows
+
+    def keep(table, ids, impl="kernel"):
+        seen.append((table, baked_ops._row_ids(ids, table.shape[0]).clone()))
+        return real(table, ids, impl)
+
+    monkeypatch.setattr(baked_ops, "gather_table_rows", keep)
+    s.render(64, 48, look_at_matrix([0.5, 0.5, -1.6], [0.5, 0.5, 0.5]), (48.0, 48.0),
+             renderer="baked", fine=fine)
+    assert seen
+    for table, idx in seen:
+        if table.shape[1] * table.element_size() == 512:
+            t32 = table.view(torch.int32)
+            n = gather_rows.launches
+            assert torch.equal(gather_rows(t32, idx), gather_rows_plain(t32, idx))
+            assert gather_rows.launches == n + 1
+        else:
+            n = gather_small.launches
+            assert torch.equal(gather_small(table, idx), gather_small_plain(table, idx))
+            assert gather_small.launches == n + 1
+        assert int(idx.min()) >= 0 and int(idx.max()) < table.shape[0]

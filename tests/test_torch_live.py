@@ -353,8 +353,13 @@ def test_unported_parts_raise(what):
         with pytest.raises(ValueError):
             frame(render_mode="wireframe")
     elif what == "baked_renderer":
-        with pytest.raises(NotImplementedError, match="baked"):
-            fox_port_session().render(8, 8, renderer="baked")
+        # ported (Slice E): the fox renders and matches the reference, each
+        # package's Session holding one bake (tests/test_torch_baked.py)
+        from test_torch_baked import hold_frame, session_frames
+
+        got, want = session_frames(16, 16)
+        hold_frame(got, want)
+        assert got[..., 3].mean() > 0.3
     else:
         with pytest.raises(ValueError):
             fox_port_session().render(8, 8, renderer="raster")

@@ -244,7 +244,7 @@ def test_live_frame_with_an_envmap_matches_reference():
 
 def test_sweep_frame_with_an_envmap_matches_reference():
     from sienerf_tpu.engines.nerf_sweep import render_frame_sweep as jsweep
-    from sienerf_torch.convert import bake_from_jax
+    from sienerf_torch.convert import baked_grid_from_jax
     from sienerf_torch.engines.nerf_sweep import render_frame_sweep
 
     jeng, jp, teng, tp, bf = tiny()
@@ -253,7 +253,7 @@ def test_sweep_frame_with_an_envmap_matches_reference():
     kw = dict(width=24, height=16, background=(0.2, 0.3, 0.4))
     jr, _ = jsweep(jeng, dict(jp, envmap=jnp.asarray(env)), grid, meta, _cam(), FOCAL, **kw)
     tr, _ = render_frame_sweep(teng, dict(tp, envmap=torch.from_numpy(env)),
-                               bake_from_jax(jax.tree.map(np.asarray, grid), "cpu"),
+                               baked_grid_from_jax(jax.tree.map(np.asarray, grid), "cpu"),
                                dict(meta), _cam(), FOCAL, **kw)
     np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=2e-2, atol=5e-3)
 

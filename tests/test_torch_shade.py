@@ -24,7 +24,7 @@ def _f32(x):
 
 def test_plain_shade_matches_xla_prep():
     from sienerf_tpu.engines.nerf_sweep import prepare_rgba_volume as jax_prep
-    from sienerf_torch.convert import bake_from_jax
+    from sienerf_torch.convert import baked_grid_from_jax
     from sienerf_torch.engines.nerf_sweep import prepare_rgba_volume
 
     jeng, jparams, _ = fox_jax()
@@ -33,7 +33,7 @@ def test_plain_shade_matches_xla_prep():
     want = jax_prep(jeng, jparams, jnp.asarray(jgrid["rows"]), jnp.asarray(jgrid["scale"]),
                     jnp.asarray(CAM), R, K)
     s = fox_port_session()
-    grid = bake_from_jax(jgrid, device="cpu")
+    grid = baked_grid_from_jax(jgrid, device="cpu")
     got = prepare_rgba_volume(s.engine, s.state["params"], grid["rows"], grid["scale"],
                               torch.from_numpy(CAM), R, K)
     assert got.dtype == torch.bfloat16 and got.shape == (K, R + 1, R + 1, R + 1, 4)
@@ -43,7 +43,7 @@ def test_plain_shade_matches_xla_prep():
 
 def test_shade_wrapper_matches_pallas_interpret():
     from sienerf_tpu.ops.shade_pallas import build_fieldmajor_planes, shade_volume_pallas
-    from sienerf_torch.convert import bake_from_jax
+    from sienerf_torch.convert import baked_grid_from_jax
     from sienerf_torch.ops.shade import shade_volume
 
     jeng, jparams, _ = fox_jax()
@@ -57,7 +57,7 @@ def test_shade_wrapper_matches_pallas_interpret():
         density_act=jeng.net.density_activation.name.lower(),
         rgb_act=jeng.net.rgb_activation.name.lower(), interpret=True)
     s = fox_port_session()
-    grid = bake_from_jax(jgrid, device="cpu")
+    grid = baked_grid_from_jax(jgrid, device="cpu")
     got = shade_volume(grid["rows"], grid["scale"], torch.from_numpy(CAM),
                        s.state["params"]["rgb_mlp"], resolution=R, n_cascades=K,
                        density_act=s.engine.net.density_activation,

@@ -65,6 +65,35 @@ def fox_jax_bake(resolution):
     return {"rows": np.asarray(grid["rows"]), "scale": np.asarray(grid["scale"])}, meta
 
 
+@functools.lru_cache(maxsize=4)
+def fox_jax_baked_grid(resolution, mode="nearest", row_bits=16):
+    """The reference's whole bake_feature_grid at `resolution` (rows,
+    scale and every sidecar, bricks when nearest) as numpy, and its
+    meta."""
+    from sienerf_tpu.engines.nerf_baked import bake_feature_grid
+
+    eng, params, bitfield = fox_jax()
+    fn = jax.jit(lambda p, b: bake_feature_grid(eng, p, b, resolution, mode=mode,
+                                                row_bits=row_bits)[0])
+    grid = {k: np.asarray(v) for k, v in fn(params, bitfield).items()}
+    return grid, {"resolution": resolution, "mode": mode,
+                  "n_cascades": int(bitfield.shape[0])}
+
+
+def fox_port_session_baked(resolution, mode="nearest", row_bits=16):
+    """A copy of the port's fox Session holding the reference's bake
+    (fox_jax_baked_grid, carried across by baked_grid_from_jax), so that
+    both packages render from one bake; the shared session keeps none."""
+    import copy
+
+    from sienerf_torch.convert import baked_grid_from_jax
+
+    grid, meta = fox_jax_baked_grid(resolution, mode, row_bits)
+    s = copy.copy(fox_port_session())
+    s._baked = (baked_grid_from_jax(grid, "cpu"), dict(meta))
+    return s
+
+
 @functools.lru_cache(maxsize=1)
 def fox_port_session():
     """The port's Session on the CPU with the fox snapshot loaded."""
