@@ -14,9 +14,10 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   (sienerf_torch/csrc/gather.cu) at the probe's own sizes, each kernel timed
   by bursts of launches and by single calls;
 - the live path: Session.render(renderer="live"), the streaming
-  ray-marched renderer, at 1280x720, a 160x90 frame of it against the same
-  code on the CPU, and the sweep frames' PSNR and SSIM against the live
-  frames;
+  ray-marched renderer, at 1280x720 (one frame at tile 2^14, the timed
+  and the phase-synchronised frames at tile 2^17), a 160x90 frame of it
+  against the same code on the CPU, and the sweep frames' PSNR and SSIM
+  against the live frames;
 - the training path: 55 teacher views of the fox field rendered through
   the sweep (K1, K2) at 1280x720 make an in-memory dataset (50 to train, 5
   held out); a fresh fox-width student (8 levels x 4 features, 2^19 rows,
@@ -47,6 +48,23 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   and the hybrid frame with the trained student loaded twice as NeRF
   objects, rendered through render_rays_baked.
 
+- the image, SDF and volume modes and mesh export, each at its config's
+  full width through Session.load_file / train / render on an input
+  built in code: `[image]` a 4096x4096 procedural RGBA image written as a
+  half-float EXR (16 levels x 2^24 rows, 2^18 samples a step; PSNR against
+  the image before and after 97 steps, peak memory); `[sdf]` an
+  81,920-triangle sphere beside a box written as OBJ (2^19 rows, 2^16
+  samples, host ground truth; IoU at 64^3 before and after 176 steps,
+  1280x720 frames with shadows); `[volume]` a 256^3 shell written as
+  .nvdb (144 steps, 1280x720 spp 4 frames of the grid and the network,
+  their opacities); `[mesh]` save_mesh at 256^3 of the SDF (OBJ) and of
+  the fox (binary PLY with vertex colours and normals) and
+  optimise_mesh_step.  Each times its steps (bundles
+  of 16, synchronised at their ends) and frames, splits one step and one
+  frame by phase, holds one injected step to the CPU, and the SDF and
+  volume frames to the CPU at a small size.  None launches K1, K2, G1 or
+  G2: the JAX package runs these modes in XLA alone.
+
 It builds every kernel from the sources in the checkout, holds each against
 its plain PyTorch version on the card, checks the sweep frames against the
 plain-version frames, counts the kernel launches of each path, and times
@@ -64,6 +82,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -88,9 +107,6 @@ LIVE_SMALL = (160, 90)  # the live frame that is held to the CPU run
 # ray across a voxel boundary
 LIVE_MIN_AGREE = 0.99
 LIVE_BIG_TILE = 1 << 17
-# timed 720p live frames at the default tile (20-40 s each: the march is
-# thousands of small launches); one, so that the training phase fits
-LIVE_TIMED = 1
 # timed tile-2^17 live frames: one, so that the baked phase fits the limit
 LIVE_BIG_TIMED = 1
 QUALITY_MIN_DB = 15.0  # a mismatched network config renders fog at ~11 dB
@@ -166,6 +182,22 @@ TRILINEAR_MIN_DB, TRILINEAR_RES = 35.0, 128
 HYBRID_NERF_CENTERS = ([0.0, 0.0, 0.0], [-0.15, 0.3, 0.2])
 HYBRID_BAKED_TILE = 1 << 18
 K2_FLOPS_PER_SAMPLE = 30  # affine map, texel select, alpha (one exp), carry
+# Slice F: the image, SDF and volume modes at their configs' full width and
+# mesh export, each input built in code (the reference's image, meshes and
+# .nvdb cloud are not in the repo).  Depths are cut so that the four phases
+# take under 150 s together: image 6 bundles of 16 steps; SDF 10 bundles
+# (its host ground truth sets the pace, PERF.md section 5); volume 8 bundles;
+# each phase then times one more, phase-synchronised, step or bundle
+IMAGE_RES, IMAGE_BUNDLES = 4096, 6
+IMAGE_MIN_GAIN_DB = 8.0  # PSNR over the untrained network's (tests/test_image_mode.py)
+MODE_CHECK_BATCH = 1 << 14  # the card step held to the CPU step ...
+MODE_STEP_LOSS_RTOL = 1e-4  # ... at the CPU tests' loss tolerance
+SDF_SPHERE_SUBDIV, SDF_BUNDLES, SDF_IOU_RES = 6, 10, 64
+SDF_MIN_IOU_GAIN = 0.15  # IoU over the untrained network's
+SDF_EYE, SDF_SMALL = (1.3, 0.9, -0.5), (160, 90)
+VOLUME_RES, VOLUME_BUNDLES, VOLUME_SPP = 256, 8, 4
+VOLUME_EYE, VOLUME_FOCAL, VOLUME_SMALL = (0.5, 0.5, -1.5), 1600.0, (64, 36)
+MESH_RES, MESH_OPT_STEPS = 256, 3
 
 
 class SmokeFailure(Exception):
@@ -1088,6 +1120,473 @@ def determinism_check(eng, state, dev) -> dict:
     return out
 
 
+# -- the image, SDF and volume modes and mesh export (Slice F) ----------------
+
+
+def sync_ms(fn) -> float:
+    """Host ms of fn() with the device synchronised before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t)
+
+
+def bundles_ms(fn, n: int, steps: int):
+    """n bundles of fn() (`steps` steps each, returning the bundle's loss),
+    the device synchronised at bundle ends -> (ms a step of each bundle,
+    the losses)."""
+    ms, losses = [], []
+    for _ in range(n):
+        box = []
+        ms.append(sync_ms(lambda: box.append(fn())) / steps)
+        losses.append(float(box[0]))
+    return ms, losses
+
+
+def phase_split(stats: dict, per: int = 1) -> dict:
+    """stats["phase_s"] as ms, divided by `per` (the steps of a bundle)."""
+    return {k: round(1e3 * v / per, 3) for k, v in stats["phase_s"].items()}
+
+
+def host_rss_gib() -> float:
+    """The process's largest resident set so far, GiB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def kernel_counts() -> dict:
+    from sienerf_torch.ops.gather import gather_rows, gather_small
+    from sienerf_torch.ops.shade import shade_volume
+    from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel
+
+    return {"shade": shade_volume.launches, "sweep": sweep_composite_kernel.launches,
+            "gather_rows": gather_rows.launches, "gather_small": gather_small.launches}
+
+
+def zero_kernel_counts() -> None:
+    from sienerf_torch.ops.gather import gather_rows, gather_small
+    from sienerf_torch.ops.shade import shade_volume
+    from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel
+
+    shade_volume.launches = sweep_composite_kernel.launches = 0
+    gather_rows.launches = gather_small.launches = 0
+
+
+def card_vs_cpu_step(name: str, call, params_cpu: dict, dev) -> dict:
+    """One injected training step's loss and gradients on the card against
+    the same step on the CPU: `call(params, device) -> (loss, grads)` runs
+    the mode's loss_and_grads on inputs it moves to `device`.  The loss at
+    the CPU tests' rtol 1e-4 and, with the card's bf16 roundings of every
+    MLP input put into the CPU step, at STEP_FLIP_RTOL; the gradients at
+    the tolerances of tests/test_torch_hashgrad.py."""
+    import torch
+
+    from sienerf_torch.ops.mlp import tap_roundings
+    from sienerf_torch.ops.optim import tree_leaves, tree_map
+
+    cpu = torch.device("cpu")
+    with tap_roundings() as cpu_tap:
+        loss, grads = call(params_cpu, cpu)
+    with tap_roundings() as tap:
+        gloss, ggrads = call(tree_map(lambda t: t.to(dev), params_cpu), dev)
+    torch.cuda.synchronize()
+    with tap_roundings(replace=[v.detach().cpu() for v in tap.seen]):
+        loss_inj = call(params_cpu, cpu)[0]
+    flips = sum(int((a.cpu() != b).sum()) for a, b, k in zip(tap.seen, cpu_tap.seen, tap.kinds)
+                if k == "rounded")
+    raw = abs(float(gloss) - float(loss)) / abs(float(loss))
+    inj = abs(float(gloss) - float(loss_inj)) / abs(float(loss))
+    worst = 0.0
+    for leaf, (a, b) in enumerate(zip(tree_leaves(ggrads), tree_leaves(grads))):
+        a = a.cpu()
+        share = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        worst = max(worst, share)
+        check(share <= STEP_MAX_SHARE, f"[{name}] gradient leaf {leaf}: {share:.3g} of max")
+        if a.dim() == 2:  # an MLP matrix
+            check(bool(torch.allclose(a, b, **STEP_MLP_TOL)), f"[{name}] MLP gradient {leaf}")
+    log(f"[{name}] card step vs CPU: loss {float(gloss):.7g} vs {float(loss):.7g} (rel "
+        f"{raw:.3g}; {inj:.3g} with the card's roundings put in, {flips} bf16 roundings "
+        f"differ), gradients within {100 * worst:.3f} % of their largest entry")
+    check(raw <= MODE_STEP_LOSS_RTOL, f"[{name}] card step loss: rel {raw:.3g}")
+    check(inj <= STEP_FLIP_RTOL, f"[{name}] card loss vs the CPU's with the card's roundings: "
+                                 f"rel {inj:.3g}")
+    return {"loss_card": float(gloss), "loss_cpu": float(loss), "loss_rel": raw,
+            "loss_rel_flips_in": inj, "flipped_roundings": flips, "grad_worst_share": worst}
+
+
+def procedural_image(n: int, seed: int = 0):
+    """An (n, n, 4) f32 RGBA image with detail at every scale: zone plates
+    whose frequency reaches the Nyquist limit at the border (red, green), a
+    ramp (blue), a band of text lines of glyph-like 5x7 blocks of ink, and
+    an alpha that falls off outside a disc."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    c = np.arange(n, dtype=np.float32) - n / 2
+    y, x = np.meshgrid(c, c, indexing="ij")
+    r2 = x * x + y * y
+    img = np.empty((n, n, 4), np.float32)
+    img[..., 0] = 0.5 + 0.5 * np.cos(np.float32(np.pi / n) * r2)
+    img[..., 1] = 0.5 + 0.5 * np.cos(np.float32(np.pi / (2 * n)) * r2 + np.float32(1.0))
+    img[..., 2] = (x + n / 2) / n
+    img[..., 3] = np.clip(1.5 - np.sqrt(r2) / (0.6 * n), 0.0, 1.0)
+    px = max(n // 512, 1)  # pixels a glyph cell
+    rows, cols = n // (4 * 9 * px), n // (6 * px)
+    ink = np.zeros((rows, 9, cols, 6), bool)
+    ink[:, 1:8, :, :5] = (rng.random((rows, cols, 7, 5)) < 0.45).transpose(0, 2, 1, 3)
+    ink = np.repeat(np.repeat(ink.reshape(rows * 9, cols * 6), px, 0), px, 1)
+    img[n // 8:n // 8 + ink.shape[0], :ink.shape[1], :3][ink] = 0.05
+    return img
+
+
+def image_phase(dev, tmp: Path) -> dict:
+    """configs/image/base.json at full width (16 levels x 2 features, 2^24
+    rows, 2^18 samples a step) on a procedural IMAGE_RES^2 RGBA image that
+    the port's codec writes as a half-float EXR and Session.load_file
+    reads."""
+    import numpy as np
+    import torch
+
+    from sienerf_torch.engines.image import ImageEngine
+    from sienerf_torch.io.exr import write_exr
+    from sienerf_torch.session import Session
+
+    out = {}
+    t = time.perf_counter()
+    img = procedural_image(IMAGE_RES)
+    write_exr(tmp / "procedural.exr", img)
+    out["write_exr_s"] = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    t = time.perf_counter()
+    sess = Session(device=dev)
+    sess.load_file(tmp / "procedural.exr")
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t
+    eng, g = sess.engine, sess.engine.net.grid
+    table = sess.state["params"]["grid"]
+    log(f"[image] {IMAGE_RES}x{IMAGE_RES} RGBA half EXR "
+        f"({(tmp / 'procedural.exr').stat().st_size / 2 ** 20:.1f} MiB) made and written in "
+        f"{out['write_exr_s']:.2f} s, loaded in {out['load_s']:.2f} s; table "
+        f"{tuple(table.shape)} f32, {table.numel() * 4 / 1e9:.2f} GB; batch {eng.batch_size}")
+    check(g.n_levels == 16 and g.log2_hashmap_size == 24 and eng.batch_size == 1 << 18,
+          "image mode is not at the configuration's full width")
+    check(torch.equal(eng.image.cpu(), torch.from_numpy(
+        img.astype(np.float16).astype(np.float32))), "the EXR did not load as written")
+    del img, table
+    p, o = sess.state["params"], sess.state["opt"]
+    psnr0 = eng.psnr(p, o)
+    ms, losses = bundles_ms(lambda: sess.train(16), IMAGE_BUNDLES, 16)
+    stats = {"sync_phases": True}
+    eng.train_step(p, o, sess._generator, stats=stats)
+    out["split_ms"] = phase_split(stats)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["render_ms"] = sync_ms(lambda: eng.render(p, o, IMAGE_RES, IMAGE_RES))
+    psnr1 = eng.psnr(p, o)
+    out.update(ms_per_step=statistics.median(ms), ms_runs=[round(x, 2) for x in ms],
+               loss_first_last=(losses[0], losses[-1]), psnr0_db=psnr0, psnr_db=psnr1,
+               launches=kernel_counts())
+    log(f"[image] {IMAGE_BUNDLES} bundles of 16 steps: {out['ms_per_step']:.2f} ms a step "
+        f"(median; bundles {out['ms_runs']}), loss {losses[0]:.5f} -> {losses[-1]:.5f}; one "
+        f"synced step: {out['split_ms']} ms; peak memory {out['peak_mem_gb']:.2f} GB")
+    log(f"[image] the whole {IMAGE_RES}x{IMAGE_RES} render {out['render_ms']:.1f} ms; PSNR "
+        f"against its own training image {psnr0:.2f} -> {psnr1:.2f} dB after "
+        f"{IMAGE_BUNDLES * 16 + 1} steps; kernel launches {out['launches']}")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0], "image: the loss did not fall")
+    check(psnr1 >= psnr0 + IMAGE_MIN_GAIN_DB,
+          f"image: PSNR {psnr0:.2f} -> {psnr1:.2f} dB, under +{IMAGE_MIN_GAIN_DB} dB")
+    del sess, eng, p, o
+    torch.cuda.empty_cache()
+    # one injected step on the card against the CPU: the grid at 2^16 rows
+    # (16 x 2 still) on a 256^2 image, the same coordinates
+    cfg = json.loads((ROOT / "configs" / "image" / "base.json").read_text())
+    cfg["encoding"]["log2_hashmap_size"] = 16
+    crop = procedural_image(256, seed=1)
+    engs = [ImageEngine.create(cfg, crop, batch_size=MODE_CHECK_BATCH, device=d)
+            for d in ("cpu", dev)]
+    params, _ = engs[0].init(3)
+    coords = torch.rand((MODE_CHECK_BATCH, 2), generator=torch.Generator().manual_seed(4))
+    out["card_vs_cpu"] = card_vs_cpu_step(
+        "image", lambda prm, d: engs[d != torch.device("cpu")].loss_and_grads(
+            prm, coords.to(d)), params, dev)
+    return out
+
+
+def on_cpu(eng, **fields):
+    """A copy of a mode's engine whose tensors are on the CPU."""
+    import torch
+
+    return dataclasses.replace(eng, device=torch.device("cpu"), **{
+        k: (v.cpu() if hasattr(v, "cpu") else {n: t.cpu() for n, t in v.items()})
+        for k, v in fields.items()})
+
+
+def sdf_phase(dev, tmp: Path):
+    """configs/sdf/base.json at full width (16 x 2, 2^19 rows, 2^16
+    samples, host ground truth) on an 81,920-triangle sphere beside a box,
+    written as OBJ and loaded by Session.load_file -> (numbers, session)."""
+    import numpy as np
+    import torch
+
+    from sienerf_torch.geom.mesh_io import box_mesh, icosphere, save_obj
+    from sienerf_torch.ops.optim import tree_map
+    from sienerf_torch.session import Session
+    from sienerf_torch.utils.camera import look_at_matrix
+
+    out = {}
+    tri = np.concatenate([icosphere(SDF_SPHERE_SUBDIV, 0.3) + np.float32([0.35, 0.5, 0.5]),
+                          box_mesh((0.72, 0.3, 0.3), (0.95, 0.75, 0.65))])
+    save_obj(tmp / "scene.obj", tri.reshape(-1, 3), np.arange(3 * len(tri)).reshape(-1, 3))
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    t = time.perf_counter()
+    sess = Session(device=dev)
+    sess.load_file(tmp / "scene.obj")
+    out["load_s"] = time.perf_counter() - t
+    eng, g = sess.engine, sess.engine.net.grid
+    log(f"[sdf] {len(tri)} triangles as OBJ, loaded (native BVH, {eng.bvh_host.n_nodes} nodes) "
+        f"in {out['load_s']:.2f} s; grid {g.n_levels}x{g.n_features_per_level}, "
+        f"2^{g.log2_hashmap_size} rows, batch {eng.batch_size}")
+    check(len(eng.bvh_host.triangles) == len(tri) and g.n_levels == 16
+          and g.log2_hashmap_size == 19 and eng.batch_size == 1 << 16,
+          "SDF mode is not at the configuration's full width")
+    t = time.perf_counter()
+    iou0 = sess.calculate_iou(SDF_IOU_RES)
+    out["iou_s"] = time.perf_counter() - t
+    ms, losses = bundles_ms(lambda: sess.train(16), SDF_BUNDLES, 16)
+    stats = {"sync_phases": True}
+    sess.state, _ = eng.train_bundle(sess.state, sess._generator, stats=stats)
+    sess.training_step += 16
+    out["split_ms"] = phase_split(stats, 16)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    iou1 = sess.calculate_iou(SDF_IOU_RES)
+    out.update(ms_per_step=statistics.median(ms), ms_runs=[round(x, 2) for x in ms],
+               loss_first_last=(losses[0], losses[-1]), iou_untrained=iou0, iou=iou1)
+    gt_share = out["split_ms"]["ground_truth"] / sum(out["split_ms"].values())
+    log(f"[sdf] {SDF_BUNDLES} bundles of 16 steps: {out['ms_per_step']:.2f} ms a step "
+        f"(median; bundles {out['ms_runs']}), loss {losses[0]:.5f} -> {losses[-1]:.5f}; a "
+        f"synced bundle a step: {out['split_ms']} ms, host ground truth "
+        f"{100 * gt_share:.1f} % ({eng_threads()} threads); peak memory "
+        f"{out['peak_mem_gb']:.2f} GB")
+    log(f"[sdf] IoU at {SDF_IOU_RES}^3 ({out['iou_s']:.2f} s): untrained {iou0:.4f}, after "
+        f"{sess.training_step} steps {iou1:.4f}")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0], "SDF: the loss did not fall")
+    check(iou1 >= iou0 + SDF_MIN_IOU_GAIN, f"SDF: IoU {iou0:.4f} -> {iou1:.4f}")
+    # 1280x720 frames with shadows: the first, a timed one, a synced one
+    cam = look_at_matrix(SDF_EYE, [0.5, 0.5, 0.5])
+    out["first_frame_ms"] = sync_ms(lambda: sess.render(WIDTH, HEIGHT, cam))
+    fstats = {}
+    box = []
+    out["frame_ms"] = sync_ms(lambda: box.append(sess.render(WIDTH, HEIGHT, cam, stats=fstats)))
+    frame = box[0]
+    sstats = {"sync_phases": True}
+    sess.render(WIDTH, HEIGHT, cam, stats=sstats)
+    out["frame_split_ms"] = phase_split(sstats)
+    out["trace_iters"] = fstats["trace_iters"]
+    hit = float((frame[..., :3] != 1.0).any(dim=-1).float().mean())
+    log(f"[sdf] {WIDTH}x{HEIGHT} frame, shadows on: first {out['first_frame_ms']:.1f} ms, then "
+        f"{out['frame_ms']:.1f} ms ({out['trace_iters']} sphere-trace iterations, primary and "
+        f"shadow); synced: {out['frame_split_ms']} ms; {100 * hit:.1f} % of pixels hit")
+    check(frame.shape == (HEIGHT, WIDTH, 4) and bool(torch.isfinite(frame).all())
+          and 0.05 < hit < 0.95, "SDF frame: empty, full or not finite")
+    # the card against the CPU: a 160x90 frame and one injected step
+    params = sess.render_params()
+    ceng = on_cpu(eng, bvh_dev=eng.bvh_dev, tri_normals=eng.tri_normals, tri_cdf=eng.tri_cdf)
+    pc = tree_map(lambda x: x.cpu(), params)
+    sw, sh = SDF_SMALL
+    a, ad = eng.render_frame(params, sw, sh, cam)
+    t = time.perf_counter()
+    b, bd = ceng.render_frame(pc, sw, sh, cam)
+    hits_differ = float((torch.isfinite(ad.cpu()) != torch.isfinite(bd)).float().mean())
+    close = torch.isclose(a.cpu(), b, **STEP_MLP_TOL).all(dim=-1).float().mean()
+    out["cpu_frame"] = {"hits_differ": hits_differ, "close": float(close),
+                        "cpu_s": time.perf_counter() - t}
+    log(f"[sdf] {sw}x{sh} card vs CPU ({out['cpu_frame']['cpu_s']:.1f} s on the CPU): hit masks "
+        f"differ on {100 * hits_differ:.2f} % of pixels, colours within rtol 1e-2 / atol 1e-3 "
+        f"on {100 * float(close):.2f} %")
+    check(hits_differ <= 0.01 and float(close) >= 0.97, "SDF: the card frame is not the CPU's")
+    pos, tgt = eng.draw_bundle(torch.Generator(device=dev).manual_seed(6), 1)
+    pos, tgt = pos[0, :MODE_CHECK_BATCH].cpu(), tgt[0, :MODE_CHECK_BATCH].cpu()
+    engs = [ceng, eng]
+    out["card_vs_cpu"] = card_vs_cpu_step(
+        "sdf", lambda prm, d: engs[d != torch.device("cpu")].loss_and_grads(
+            prm, pos.to(d), tgt.to(d)),
+        tree_map(lambda x: x.cpu(), sess.state["params"]), dev)
+    out["launches"] = kernel_counts()
+    return out, sess
+
+
+def eng_threads() -> int:
+    return max(1, (os.cpu_count() or 4) - 1)
+
+
+def volume_phase(dev, tmp: Path) -> dict:
+    """configs/volume/base.json at full width (8 x 4, 2^19 rows, 2^16
+    samples) on a VOLUME_RES^3 synthetic shell written as .nvdb by the port
+    and loaded by Session.load_file."""
+    import numpy as np
+    import torch
+
+    from sienerf_torch.io.nanovdb import synthetic_fog_volume, write_nanovdb
+    from sienerf_torch.ops.optim import tree_map
+    from sienerf_torch.session import Session
+    from sienerf_torch.utils.camera import look_at_matrix
+
+    out = {}
+    t = time.perf_counter()
+    vol = synthetic_fog_volume(VOLUME_RES, "shell")
+    write_nanovdb(tmp / "shell.nvdb", vol.density)
+    out["write_s"] = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    t = time.perf_counter()
+    sess = Session(device=dev)
+    sess.load_file(tmp / "shell.nvdb")
+    out["load_s"] = time.perf_counter() - t
+    eng, g = sess.engine, sess.engine.net.grid
+    log(f"[volume] {VOLUME_RES}^3 shell as .nvdb ({(tmp / 'shell.nvdb').stat().st_size / 2 ** 20:.1f}"
+        f" MiB) made and written in {out['write_s']:.2f} s, loaded in {out['load_s']:.2f} s; "
+        f"majorant {eng.majorant:.3f}; grid {g.n_levels}x{g.n_features_per_level}, "
+        f"2^{g.log2_hashmap_size} rows, batch {eng.batch_size}")
+    check(tuple(eng.gt_density.shape) == (VOLUME_RES,) * 3 + (1,) and g.n_levels == 8
+          and g.n_features_per_level == 4 and g.log2_hashmap_size == 19
+          and eng.batch_size == 1 << 16, "volume mode is not at the configuration's full width")
+    check(torch.equal(eng.gt_density[..., 0].cpu(), torch.from_numpy(vol.density)),
+          "the .nvdb did not load as written")
+    ms, losses = bundles_ms(lambda: sess.train(16), VOLUME_BUNDLES, 16)
+    stats = {"sync_phases": True}
+    sess.state, _ = eng.train_bundle(sess.state, sess._generator, stats=stats)
+    sess.training_step += 16
+    out["split_ms"] = phase_split(stats, 16)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out.update(ms_per_step=statistics.median(ms), ms_runs=[round(x, 2) for x in ms],
+               loss_first_last=(losses[0], losses[-1]))
+    log(f"[volume] {VOLUME_BUNDLES} bundles of 16 steps: {out['ms_per_step']:.2f} ms a step "
+        f"(median; bundles {out['ms_runs']}), loss {losses[0]:.5f} -> {losses[-1]:.5f}; a "
+        f"synced bundle a step: {out['split_ms']} ms; peak memory {out['peak_mem_gb']:.2f} GB")
+    check(np.isfinite(losses).all() and losses[-1] < 0.5 * losses[0],
+          "volume: the loss did not halve")
+    cam = look_at_matrix(VOLUME_EYE, [0.5, 0.5, 0.5])
+    focal = (VOLUME_FOCAL, VOLUME_FOCAL)
+    frames = {}
+    for use_gt in (True, False):
+        st = {}
+        box = []
+        ms_f = sync_ms(lambda: box.append(sess.render(WIDTH, HEIGHT, cam, focal, spp=VOLUME_SPP,
+                                                      use_gt=use_gt, stats=st)))
+        frames[use_gt] = box[0]
+        out["gt" if use_gt else "network"] = {"frame_ms": ms_f, "march_iters": st["march_iters"]}
+    sstats = {"sync_phases": True}
+    sess.render(WIDTH, HEIGHT, cam, focal, spp=1, stats=sstats)
+    out["frame_split_ms_spp1"] = phase_split(sstats)
+    h2, w2 = HEIGHT // 2, WIDTH // 2
+    centre = {k: float(f[h2 - 16:h2 + 16, w2 - 16:w2 + 16, 3].mean()) for k, f in frames.items()}
+    corner = {k: float(f[:16, :16, 3].mean()) for k, f in frames.items()}
+    out.update(centre_opacity={"gt": centre[True], "network": centre[False]},
+               corner_opacity={"gt": corner[True], "network": corner[False]})
+    log(f"[volume] {WIDTH}x{HEIGHT} spp {VOLUME_SPP}: use_gt {out['gt']['frame_ms']:.1f} ms "
+        f"({out['gt']['march_iters']} delta-tracking iterations), network "
+        f"{out['network']['frame_ms']:.1f} ms ({out['network']['march_iters']}); synced spp 1 "
+        f"network frame: {out['frame_split_ms_spp1']} ms; opacity centre / corner: use_gt "
+        f"{centre[True]:.3f} / {corner[True]:.3f}, network {centre[False]:.3f} / "
+        f"{corner[False]:.3f}")
+    for f in frames.values():
+        check(f.shape == (HEIGHT, WIDTH, 4) and bool(torch.isfinite(f).all()),
+              "volume frame: shape or non-finite values")
+    check(centre[True] > 0.5 and centre[False] > 0.3 and corner[True] < 0.2
+          and corner[False] < 0.2, "volume: the frames' centre and corner opacities")
+    # the card against the CPU: a small frame on the same draws, one step
+    params = sess.render_params()
+    ceng = on_cpu(eng, gt_density=eng.gt_density)
+    pc = tree_map(lambda x: x.cpu(), params)
+    gen, cache = torch.Generator().manual_seed(5), []
+
+    def draws_on(d):
+        def draw(_pass, i, n):
+            while len(cache) <= i:
+                u = torch.rand((n,), generator=gen)
+                cache.append((1e-7 + u * (1.0 - 1e-7), torch.rand((n,), generator=gen)))
+            return tuple(x.to(d) for x in cache[i])
+        return draw
+
+    sw, sh = VOLUME_SMALL
+    small_focal = (VOLUME_FOCAL * sw / WIDTH,) * 2
+    a, aa = eng.render_frame(params, sw, sh, cam, small_focal, spp=1, draw=draws_on(dev))
+    b, ba = ceng.render_frame(pc, sw, sh, cam, small_focal, spp=1,
+                              draw=draws_on(torch.device("cpu")))
+    differ = (aa.cpu() != ba)
+    close = torch.isclose(a.cpu(), b, **STEP_MLP_TOL).all(dim=-1)[~differ]
+    out["cpu_frame"] = {"hits_differ": float(differ.float().mean()),
+                        "close": float(close.float().mean())}
+    log(f"[volume] {sw}x{sh} card vs CPU on the same draws: hits differ on "
+        f"{100 * out['cpu_frame']['hits_differ']:.2f} % of pixels, colours within rtol 1e-2 / "
+        f"atol 1e-3 on {100 * out['cpu_frame']['close']:.2f} % of the others")
+    check(out["cpu_frame"]["hits_differ"] <= 0.005 and out["cpu_frame"]["close"] >= 0.99,
+          "volume: the card frame is not the CPU's")
+    pos = torch.rand((MODE_CHECK_BATCH, 3), generator=torch.Generator().manual_seed(7))
+    engs = [ceng, eng]
+    out["card_vs_cpu"] = card_vs_cpu_step(
+        "volume", lambda prm, d: engs[d != torch.device("cpu")].loss_and_grads(prm, pos.to(d)),
+        tree_map(lambda x: x.cpu(), sess.state["params"]), dev)
+    out["launches"] = kernel_counts()
+    return out
+
+
+def mesh_phase(fox, sdf, tmp: Path) -> dict:
+    """Session.save_mesh at MESH_RES^3 on the trained SDF (its zero level)
+    and on the fox (density 2.5, vertex colours and normals), then
+    MESH_OPT_STEPS optimise_mesh_step: counts, times, and a closed surface:
+    every edge shared by an even number of faces (two, or four where two
+    sheets touch along it), except where the surface leaves the grid (the
+    fox capture's walls and table reach its box)."""
+    import numpy as np
+
+    out = {}
+    zero_kernel_counts()
+    # the fox's mesh (~10 M vertices: the capture's background too) as
+    # binary PLY; OBJ text of that size takes minutes to format
+    for name, sess, path in (("sdf", sdf, tmp / "sdf.obj"), ("fox", fox, tmp / "fox.ply")):
+        t = time.perf_counter()
+        verts, faces = sess.save_mesh(path, resolution=MESH_RES)
+        save_s = time.perf_counter() - t
+        edges = np.sort(np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]]),
+                        axis=1).astype(np.int64)
+        keys, uses = np.unique(edges[:, 0] * len(verts) + edges[:, 1], return_counts=True)
+        odd = keys[uses % 2 == 1]
+        open_v = np.unique(np.concatenate([odd // len(verts), odd % len(verts)]))
+        amin, adiag = (np.asarray(x, np.float32) for x in (sess.mesh["amin"], sess.mesh["adiag"]))
+        cell = adiag / MESH_RES  # vertices of the outermost cells lie within 1.5 cells of the box
+        on_border = ((verts[open_v] < amin + 1.5 * cell) | (verts[open_v] > amin + adiag - 1.5 * cell)
+                     ).any(axis=1)
+        t = time.perf_counter()
+        moved = sess.optimise_mesh_step(n_steps=MESH_OPT_STEPS)
+        opt_s = time.perf_counter() - t
+        shift = float(np.abs(moved - verts).max())
+        out[name] = {"verts": len(verts), "faces": len(faces),
+                     "open_edges": int((uses % 2 == 1).sum()),
+                     "four_face_edges": int((uses == 4).sum()), "save_s": save_s,
+                     "optimise_s": opt_s, "max_shift": shift}
+        log(f"[mesh] {name}: {len(verts)} vertices, {len(faces)} faces, "
+            f"{out[name]['open_edges']} edges of one face (all at the grid's border: "
+            f"{bool(on_border.all())}), {out[name]['four_face_edges']} of four; save_mesh at "
+            f"{MESH_RES}^3 {save_s:.2f} s, "
+            f"{MESH_OPT_STEPS} optimise_mesh_step {opt_s:.2f} s (largest move {shift:.3g})")
+        check(len(faces) > 1000 and bool(on_border.all()), f"mesh {name}: not a closed surface")
+        check(np.isfinite(moved).all() and 0 < shift < 0.05, f"mesh {name}: refinement")
+    with open(tmp / "fox.ply", "rb") as f:
+        head = f.read(1024).split(b"end_header")[0].decode()
+    check("property uchar red" in head and "property float nx" in head
+          and f"element vertex {out['fox']['verts']}" in head,
+          "the fox mesh lacks vertex colours or normals")
+    check(len(open(tmp / "sdf.obj").readline().split()) == 4, "the SDF mesh file")
+    out["launches"] = kernel_counts()
+    return out
+
+
 def frame_agreement(name, got, want) -> float:
     """The share of pixels of `got` within FRAME_TOL of `want`."""
     import torch
@@ -1341,31 +1840,21 @@ def main() -> int:
         torch.cuda.synchronize()
         return img
 
+    # one tile-2^14 frame, timed: the bake and the sweep frames before it
+    # have warmed the field's matmuls (its phase split is taken at tile 2^17)
+    live_stats = {}
     t = time.perf_counter()
-    live0 = live_frame(cams[0])  # warm-up
-    log(f"[live] warm-up frame {time.perf_counter() - t:.2f} s")
-    live_ms, live_stats = [], {}
-    for _ in range(LIVE_TIMED):
-        live_stats = {}
-        t = time.perf_counter()
-        live_frame(cams[0], stats=live_stats)
-        live_ms.append(1e3 * (time.perf_counter() - t))
+    live0 = live_frame(cams[0], stats=live_stats)
+    live_ms = [1e3 * (time.perf_counter() - t)]
     live_med = statistics.median(live_ms)
     check(live0.shape == (HEIGHT, WIDTH, 4), f"live frame shape {tuple(live0.shape)}")
     check(bool(torch.isfinite(live0).all()), "non-finite live frame")
     check(float(live0[..., 3].mean()) > 0.05 and float(live0[..., :3].std()) > 1e-3,
           "empty or constant live frame")
-    log(f"[live] 1280x720 spp1 tile 2^14: median of {LIVE_TIMED} {live_med:.1f} ms (runs "
-        f"{[round(x, 1) for x in live_ms]}), {live_stats['rounds']} rounds, host waited "
+    log(f"[live] 1280x720 spp1 tile 2^14: one frame {live_med:.1f} ms, "
+        f"{live_stats['rounds']} rounds, host waited "
         f"{1e3 * live_stats['host_wait_s']:.1f} ms for the device "
         f"({100 * 1e3 * live_stats['host_wait_s'] / live_ms[-1]:.1f} % of the frame)")
-    phases = {"sync_phases": True}
-    t = time.perf_counter()
-    live_frame(cams[0], stats=phases)
-    synced_ms = 1e3 * (time.perf_counter() - t)
-    log(f"[live] where the time goes (one frame with a device sync after every phase, "
-        f"{synced_ms:.1f} ms): "
-        + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in phases["phase_s"].items()))
     big_ms, big_stats = [], {}
     big = live_frame(cams[0], tile=LIVE_BIG_TILE)
     for _ in range(LIVE_BIG_TIMED):
@@ -1375,6 +1864,13 @@ def main() -> int:
         big_ms.append(1e3 * (time.perf_counter() - t))
     log(f"[live] tile 2^17: median of {LIVE_BIG_TIMED} {statistics.median(big_ms):.1f} ms, "
         f"{big_stats['rounds']} rounds, host waited {1e3 * big_stats['host_wait_s']:.1f} ms")
+    phases = {"sync_phases": True}
+    t = time.perf_counter()
+    live_frame(cams[0], tile=LIVE_BIG_TILE, stats=phases)
+    synced_ms = 1e3 * (time.perf_counter() - t)
+    log(f"[live] where the time goes (one tile-2^17 frame with a device sync after every "
+        f"phase, {synced_ms:.1f} ms): "
+        + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in phases["phase_s"].items()))
     compare("live frame tile 2^17 vs tile 2^14", big, live0, rtol=0.0, atol=1e-6)
     # the device's busy share of a tile-2^17 frame: the kernels' summed time in
     # a profiler trace over the untraced frame's median time
@@ -1512,7 +2008,44 @@ def main() -> int:
     torch.cuda.empty_cache()
     t = time.time()
     hy = hybrid_phase(sess, tr, dev, cuda_ms)
-    log(f"[hybrid] phase in {time.time() - t:.1f} s")
+    log(f"[hybrid] phase in {time.time() - t:.1f} s (host max RSS {host_rss_gib():.1f} GiB)")
+    # -- 11. the image, SDF and volume modes and mesh export; none of them
+    # launches K1, K2, G1 or G2 (the JAX package runs them in XLA alone)
+    for key in ("engine", "state", "dataset"):  # the student's device memory
+        tr.pop(key)
+    torch.cuda.empty_cache()
+    modes, modes_s = {}, {}
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        t = time.time()
+        modes["image"] = image_phase(dev, tmp)
+        modes_s["image"] = time.time() - t
+        log(f"[image] phase in {modes_s['image']:.1f} s (host max RSS {host_rss_gib():.1f} GiB, "
+            f"card memory in use {torch.cuda.memory_allocated() / 1e9:.1f} GB)")
+        torch.cuda.empty_cache()
+        t = time.time()
+        modes["sdf"], sdf_sess = sdf_phase(dev, tmp)
+        modes_s["sdf"] = time.time() - t
+        log(f"[sdf] phase in {modes_s['sdf']:.1f} s (host max RSS {host_rss_gib():.1f} GiB, "
+            f"card memory in use {torch.cuda.memory_allocated() / 1e9:.1f} GB)")
+        t = time.time()
+        modes["volume"] = volume_phase(dev, tmp)
+        modes_s["volume"] = time.time() - t
+        log(f"[volume] phase in {modes_s['volume']:.1f} s (host max RSS {host_rss_gib():.1f} GiB, "
+            f"card memory in use {torch.cuda.memory_allocated() / 1e9:.1f} GB)")
+        torch.cuda.empty_cache()
+        t = time.time()
+        modes["mesh"] = mesh_phase(sess, sdf_sess, tmp)
+        modes_s["mesh"] = time.time() - t
+        log(f"[mesh] phase in {modes_s['mesh']:.1f} s (host max RSS {host_rss_gib():.1f} GiB, "
+            f"card memory in use {torch.cuda.memory_allocated() / 1e9:.1f} GB)")
+        del sdf_sess
+    for name in ("image", "sdf", "volume", "mesh"):
+        check(not any(modes[name]["launches"].values()),
+              f"[{name}] launched a kernel of the NeRF paths: {modes[name]['launches']}")
+    log(f"[modes] image, SDF, volume and mesh phases in {sum(modes_s.values()):.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in modes_s.items())}); launches of K1, K2, "
+        f"G1, G2 on their paths: none")
     log(f"[done] {time.time() - t_all:.1f} s")
 
     kernels = [
@@ -1579,7 +2112,10 @@ def main() -> int:
                         "trilinear_psnr_db", "cpu_agree", "table_bytes", "phase_s")},
                     "baked_hybrid": {k: hy["baked"][k] for k in (
                         "frame_ms", "frame_ms_runs", "split_ms", "load_and_bake_s",
-                        "psnr_vs_live_db", "ssim_vs_live", "phase_s")}}))
+                        "psnr_vs_live_db", "ssim_vs_live", "phase_s")},
+                    "modes": modes, "modes_s": modes_s}))
+    for k in kernels:  # the image, SDF, volume and mesh paths launch none
+        k["launches_modes_paths"] = sum(m["launches"][k["name"]] for m in modes.values())
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

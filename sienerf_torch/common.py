@@ -39,6 +39,14 @@ class LensMode(enum.Enum):
     EQUIRECTANGULAR = "equirectangular"
 
 
+class MeshSdfMode(enum.Enum):
+    """Ground-truth signed-distance modes of SDF training."""
+
+    WATERTIGHT = "watertight"
+    RAYSTAB = "raystab"
+    PATH_ESCAPE = "path_escape"
+
+
 class TonemapCurve(enum.Enum):
     IDENTITY = "identity"
     ACES = "aces"

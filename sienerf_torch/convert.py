@@ -53,6 +53,20 @@ def params_from_jax(np_params: dict,
     return out
 
 
+def single_network_from_jax(np_params: dict, grid_config=None,
+                            device: str | torch.device = "cuda") -> dict:
+    """A JAX single network's params as numpy -> the port's.  The image
+    engine keeps its table flat, (L, T*C*F) (a TPU tiling workaround);
+    with the network's HashGridConfig `grid_config` the table (flat or
+    not) becomes the port's (L, T, 2^D, F) cell table."""
+    out = params_from_jax(np_params, device)
+    if grid_config is not None and "grid" in out:
+        g = grid_config
+        out["grid"] = out["grid"].reshape(g.n_levels, g.table_size, 1 << g.n_dims,
+                                          g.n_features_per_level).contiguous()
+    return out
+
+
 def baked_grid_from_jax(grid: dict,
                         device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
     """A JAX bake as numpy -> the port's.  Row tables ("rows": vertex rows,

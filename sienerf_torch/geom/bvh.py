@@ -21,8 +21,11 @@ dense brute-force tier).
   elementwise work.  The products run in full f32 (TF32 off), as the
   reference's run at Precision.HIGHEST.
 
-The any-hit, hit-count and closest-point queries serve SDF mode and come
-with Slice F of ROADMAP.md.
+- The SDF mode's queries walk the same layout the same way:
+  `bvh_any_hit` (shadow rays; the closest hit's id >= 0),
+  `bvh_count_hits` (every intersection along a ray: the parity of the
+  watertight sign) and `bvh_closest_point` (the unsigned distance, a walk
+  that enters a box only when it is nearer than the best triangle so far).
 """
 
 from __future__ import annotations
@@ -206,6 +209,124 @@ def bvh_raytrace(bvh: dict, origins: torch.Tensor, dirs: torch.Tensor, t_max=1e1
         node = torch.where(active, nxt, node)
     best_t = torch.where(best_id >= 0, best_t, float("inf"))
     return best_t, best_id, best_u, best_v
+
+
+def bvh_any_hit(bvh: dict, origins: torch.Tensor, dirs: torch.Tensor, t_max=1e10,
+                max_steps: int = 2048, leaf_size: int = LEAF_SIZE) -> torch.Tensor:
+    """Occlusion: True where the ray hits any triangle within t_max."""
+    return bvh_raytrace(bvh, origins, dirs, t_max, max_steps, leaf_size)[1] >= 0
+
+
+def _leaf_triangles(bvh: dict, ni: torch.Tensor, offs: torch.Tensor):
+    """The leaf slots of nodes ni -> (tid_c (N, L), tid_valid, count, a, ab, ac)."""
+    count = bvh["tri_count"][ni]
+    tid = bvh["first_tri"][ni][:, None] + offs[None, :]
+    tid_valid = offs[None, :] < count[:, None]
+    tid_c = torch.clamp(tid, 0, bvh["tri_a"].shape[0] - 1)
+    return (tid_c, tid_valid, count, bvh["tri_a"][tid_c], bvh["tri_ab"][tid_c],
+            bvh["tri_ac"][tid_c])
+
+
+@torch.no_grad()
+def bvh_count_hits(bvh: dict, origins: torch.Tensor, dirs: torch.Tensor,
+                   max_steps: int = 4096, leaf_size: int = LEAF_SIZE) -> torch.Tensor:
+    """The number of triangles each ray crosses (N,) int64: every
+    intersection along it, wherever it lies."""
+    N, dev = origins.shape[0], origins.device
+    eps = 1e-12
+    tiny = torch.where(dirs < 0, -eps, eps)
+    inv_d = 1.0 / torch.where(dirs.abs() < eps, tiny, dirs)
+    offs = torch.arange(leaf_size, device=dev)
+    node = torch.zeros((N,), dtype=torch.int64, device=dev)
+    count = torch.zeros((N,), dtype=torch.int64, device=dev)
+    for step in range(max_steps):
+        if step % _CHECK_EVERY == 0 and not bool((node >= 0).any()):
+            break
+        active = node >= 0
+        ni = torch.clamp(node, min=0)
+        tmin, tmax_box = _ray_aabb(origins, inv_d, bvh["bbox_min"][ni], bvh["bbox_max"][ni])
+        box_hit = active & (tmax_box >= torch.clamp(tmin, min=0.0))
+        tid_c, tid_valid, cnt, a, ab, ac = _leaf_triangles(bvh, ni, offs)
+        is_leaf = cnt > 0
+        hit = _moller_trumbore(origins, dirs, a, ab, ac)[3]
+        hit = hit & tid_valid & (box_hit & is_leaf)[:, None]
+        count = count + hit.sum(dim=1)
+        nxt = torch.where(box_hit & ~is_leaf, ni + 1, bvh["skip"][ni])
+        node = torch.where(active, nxt, node)
+    return count
+
+
+def _closest_on_triangle(p, a, ab, ac):
+    """The closest points of triangles (N, L, 3 each) to points p (N, 3)
+    -> (N, L, 3): the Voronoi-region test of Ericson's Real-Time Collision
+    Detection, in the reference's order of cases."""
+    ap = p[:, None, :] - a
+    d1 = (ab * ap).sum(dim=-1)
+    d2 = (ac * ap).sum(dim=-1)
+    bp = ap - ab
+    d3 = (ab * bp).sum(dim=-1)
+    d4 = (ac * bp).sum(dim=-1)
+    cp = ap - ac
+    d5 = (ab * cp).sum(dim=-1)
+    d6 = (ac * cp).sum(dim=-1)
+    va = d3 * d6 - d5 * d4
+    vb = d5 * d2 - d1 * d6
+    vc = d1 * d4 - d3 * d2
+
+    def safe(x):
+        return torch.where(x.abs() > 1e-20, x, 1.0)
+
+    denom = va + vb + vc
+    v = vb / safe(denom)
+    w = vc / safe(denom)
+    res = a + v[..., None] * ab + w[..., None] * ac
+    t_ab = torch.clamp(d1 / safe(d1 - d3), 0.0, 1.0)
+    t_ac = torch.clamp(d2 / safe(d2 - d6), 0.0, 1.0)
+    t_bc = torch.clamp((d4 - d3) / safe((d4 - d3) + (d5 - d6)), 0.0, 1.0)
+    res = torch.where(((vc <= 0) & (d1 >= 0) & (d3 <= 0))[..., None], a + t_ab[..., None] * ab, res)
+    res = torch.where(((vb <= 0) & (d2 >= 0) & (d6 <= 0))[..., None], a + t_ac[..., None] * ac, res)
+    res = torch.where(((va <= 0) & ((d4 - d3) >= 0) & ((d5 - d6) >= 0))[..., None],
+                      a + ab + t_bc[..., None] * (ac - ab), res)
+    res = torch.where(((d1 <= 0) & (d2 <= 0))[..., None], a, res)
+    res = torch.where(((d3 >= 0) & (d4 <= d3))[..., None], a + ab, res)
+    res = torch.where(((d6 >= 0) & (d5 <= d6))[..., None], a + ac, res)
+    return res
+
+
+@torch.no_grad()
+def bvh_closest_point(bvh: dict, points: torch.Tensor, max_steps: int = 4096,
+                      leaf_size: int = LEAF_SIZE):
+    """The nearest triangle of each point -> (unsigned distance (N,),
+    triangle id (N,) int64, closest point (N, 3)): a walk over the skip
+    links that enters a box only when it is nearer than the best so far."""
+    N, dev = points.shape[0], points.device
+    offs = torch.arange(leaf_size, device=dev)
+    node = torch.zeros((N,), dtype=torch.int64, device=dev)
+    best_d2 = torch.full((N,), float("inf"), device=dev)
+    best_id = torch.full((N,), -1, dtype=torch.int64, device=dev)
+    best_p = torch.zeros((N, 3), device=dev)
+    for step in range(max_steps):
+        if step % _CHECK_EVERY == 0 and not bool((node >= 0).any()):
+            break
+        active = node >= 0
+        ni = torch.clamp(node, min=0)
+        lo, hi = bvh["bbox_min"][ni], bvh["bbox_max"][ni]
+        dbox = torch.maximum(torch.clamp(lo - points, min=0.0), points - hi)
+        enter = active & ((dbox * dbox).sum(dim=-1) < best_d2)
+        tid_c, tid_valid, count, a, ab, ac = _leaf_triangles(bvh, ni, offs)
+        is_leaf = count > 0
+        cp = _closest_on_triangle(points, a, ab, ac)
+        d2 = ((points[:, None, :] - cp) ** 2).sum(dim=-1)
+        d2 = torch.where(tid_valid & (enter & is_leaf)[:, None], d2, float("inf"))
+        j = torch.argmin(d2, dim=1)
+        dj = _pick(d2, j)
+        better = dj < best_d2
+        best_d2 = torch.where(better, dj, best_d2)
+        best_id = torch.where(better, _pick(tid_c, j), best_id)
+        best_p = torch.where(better[:, None], cp[torch.arange(N, device=dev), j], best_p)
+        nxt = torch.where(enter & ~is_leaf, ni + 1, bvh["skip"][ni])
+        node = torch.where(active, nxt, node)
+    return torch.sqrt(best_d2), best_id, best_p
 
 
 # --- brute-force tier (small meshes) -------------------------------------------

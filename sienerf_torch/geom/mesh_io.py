@@ -124,32 +124,33 @@ def save_obj(path: str | Path, vertices: np.ndarray, faces: np.ndarray,
 
 def save_ply(path: str | Path, vertices: np.ndarray, faces: np.ndarray,
              colors: np.ndarray | None = None, normals: np.ndarray | None = None) -> None:
+    """Binary little-endian PLY: vertex rows of xyz f32 [+ normal f32]
+    [+ rgb u8], then face rows of a u8 count 3 and three int32 ids, each
+    table written as one packed numpy record array."""
     n_v, n_f = len(vertices), len(faces)
+    hdr = ["ply", "format binary_little_endian 1.0", f"element vertex {n_v}",
+           "property float x", "property float y", "property float z"]
+    fields = [("p", "<f4", (3,))]
+    if normals is not None:
+        hdr += ["property float nx", "property float ny", "property float nz"]
+        fields.append(("n", "<f4", (3,)))
+    if colors is not None:
+        hdr += ["property uchar red", "property uchar green", "property uchar blue"]
+        fields.append(("c", "u1", (3,)))
+    hdr += [f"element face {n_f}", "property list uchar int vertex_indices", "end_header"]
+    rows = np.empty(n_v, np.dtype(fields))
+    rows["p"] = vertices
+    if normals is not None:
+        rows["n"] = normals
+    if colors is not None:
+        rows["c"] = (np.clip(colors, 0, 1) * 255).astype(np.uint8)
+    tris = np.empty(n_f, np.dtype([("k", "u1"), ("i", "<i4", (3,))]))
+    tris["k"] = 3
+    tris["i"] = faces
     with open(path, "wb") as f:
-        hdr = ["ply", "format binary_little_endian 1.0", f"element vertex {n_v}",
-               "property float x", "property float y", "property float z"]
-        if normals is not None:
-            hdr += ["property float nx", "property float ny", "property float nz"]
-        if colors is not None:
-            hdr += ["property uchar red", "property uchar green", "property uchar blue"]
-        hdr += [f"element face {n_f}", "property list uchar int vertex_indices", "end_header"]
         f.write(("\n".join(hdr) + "\n").encode())
-        if colors is not None or normals is not None:
-            cb = (np.clip(colors, 0, 1) * 255).astype(np.uint8) if colors is not None else None
-            nf = normals.astype(np.float32) if normals is not None else None
-            for i, v in enumerate(vertices.astype(np.float32)):
-                row = v.tobytes()
-                if nf is not None:
-                    row += nf[i].tobytes()
-                if cb is not None:
-                    row += cb[i].tobytes()
-                f.write(row)
-        else:
-            f.write(vertices.astype(np.float32).tobytes())
-        counts = np.full((n_f, 1), 3, np.uint8)
-        f32 = faces.astype(np.int32)
-        for i in range(n_f):
-            f.write(counts[i].tobytes() + f32[i].tobytes())
+        f.write(rows.tobytes())
+        f.write(tris.tobytes())
 
 
 def icosphere(subdivisions: int, radius: float = 1.0) -> np.ndarray:

@@ -1,13 +1,17 @@
-"""Image loading, LDR part (port of the JAX package's io/image_io.py
-load_image).  PNG and JPG load through OpenCV, imported when an image is
-read: the package does not need it otherwise.  EXR (the JAX package's own
-codec) is not ported yet."""
+"""Image loading and saving (port of the JAX package's io/image_io.py).
+EXR reads and writes through the port's own codec (io/exr.py), linear as
+stored; PNG and JPG load through OpenCV, imported when such an image is
+read: the package does not need it otherwise (the H100 machine has none,
+so EXR is the format it reads there).  Saving LDR images is not ported
+yet (Slice G of ROADMAP.md)."""
 
 from __future__ import annotations
 
 from pathlib import Path
 
 import numpy as np
+
+from sienerf_torch.io.exr import load_exr_rgba, write_exr
 
 
 def _cv2():
@@ -20,13 +24,13 @@ def _cv2():
 
 
 def load_image(path: str | Path, as_float_linear: bool = True) -> np.ndarray:
-    """Load an LDR image as (H, W, 4) float32: bytes / 255 (or / 65535),
+    """Load an image as (H, W, 4) float32.  EXR: linear RGBA as stored
+    (a missing alpha is 1).  LDR: bytes / 255 (or / 65535),
     converted sRGB -> linear when `as_float_linear` (alpha stays linear);
     a missing alpha channel is 1."""
     path = Path(path)
     if path.suffix.lower() == ".exr":
-        raise NotImplementedError("EXR images are not ported yet (the EXR codec is "
-                                  "Slice G of ROADMAP.md)")
+        return load_exr_rgba(path)
     cv2 = _cv2()
     img = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
     if img is None:
@@ -45,3 +49,12 @@ def load_image(path: str | Path, as_float_linear: bool = True) -> np.ndarray:
         rgb = img[..., :3]
         img[..., :3] = np.where(rgb <= 0.04045, rgb / 12.92, ((rgb + 0.055) / 1.055) ** 2.4)
     return img
+
+
+def save_image(path: str | Path, img: np.ndarray) -> None:
+    """Save a (H, W, 3|4) float image as a linear half-float EXR."""
+    path = Path(path)
+    if path.suffix.lower() != ".exr":
+        raise NotImplementedError(f"{path}: saving LDR images is not ported yet (Slice G "
+                                  "of ROADMAP.md); save as .exr")
+    write_exr(path, np.asarray(img, np.float32))

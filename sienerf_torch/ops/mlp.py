@@ -131,10 +131,19 @@ def _rounded(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_apply(config: MLPConfig, params: list[torch.Tensor],
-              x: torch.Tensor) -> torch.Tensor:
-    """x (N, n_input_dims) -> (N, n_output_dims) f32."""
+              x: torch.Tensor, compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """x (N, n_input_dims) -> (N, n_output_dims) f32.  With compute_dtype
+    float32 nothing is rounded to bf16 (the SDF engine's finite-difference
+    normals)."""
     act = _activation_fn(config.activation)
     out_act = _activation_fn(config.output_activation)
+    if compute_dtype == torch.float32:
+        h = x.float()
+        for i, w in enumerate(params):
+            h = h @ w.float()
+            if i < len(params) - 1:
+                h = act(h)
+        return out_act(h).float()
     h = _rounded(x)
     for i, w in enumerate(params):
         h = h @ _bf16(w)

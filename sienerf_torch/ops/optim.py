@@ -112,12 +112,15 @@ def lr_factor(spec: OptimizerSpec, step: int) -> np.float32:
 
 
 def optim_step(spec: OptimizerSpec, state: dict, params, grads, l2_mask=None,
-               lr_mask=None):
+               lr_mask=None, inplace: bool = False):
     """One Adam step with the learning-rate schedule, then the EMA shadow.
 
     `l2_mask` (a tree of 0/1 floats like params) picks the leaves that get
     l2_reg coupled into their gradient (the MLP matrices, not the hash
     table); None gives it to none.  `lr_mask` scales each leaf's rate.
+    With `inplace` the params, m, v and the EMA shadow are updated in
+    place, _CHUNK elements at a time, to the same values: the image mode's
+    8.6 GB table leaves no room for the functional update's new copies.
     -> (new params, new state)."""
     step = int(state["step"]) + 1
     f32 = np.float32
@@ -130,7 +133,7 @@ def optim_step(spec: OptimizerSpec, state: dict, params, grads, l2_mask=None,
     if lr_mask is None:
         lr_mask = tree_map(lambda _: 1.0, params)
 
-    def upd(p, g, m, v, mask, lscale):
+    def adam(p, g, m, v, mask, lscale):
         g = g.float()
         if mask:
             g = g + (spec.l2_reg * mask) * p.float()
@@ -142,6 +145,13 @@ def optim_step(spec: OptimizerSpec, state: dict, params, grads, l2_mask=None,
         new_p = p - rate * m_hat / (torch.sqrt(v_hat) + spec.epsilon)
         return new_p.to(p.dtype), m, v
 
+    def upd(p, g, m, v, mask, lscale):
+        if not inplace:
+            return adam(p, g, m, v, mask, lscale)
+        _in_chunks(lambda pc, mc, vc, gc: adam(pc, gc, mc, vc, mask, lscale), p, m, v, g,
+                   n_out=3)
+        return p, m, v
+
     out = tree_map(upd, params, grads, state["m"], state["v"], l2_mask, lr_mask)
     leaves = tree_leaves(out)  # (p, m, v) triples, flattened
     new_params = tree_unflatten(params, leaves[0::3])
@@ -149,9 +159,32 @@ def optim_step(spec: OptimizerSpec, state: dict, params, grads, l2_mask=None,
                  "v": tree_unflatten(params, leaves[2::3]), "step": step}
     if "ema" in state:
         d = spec.ema_decay
-        new_state["ema"] = tree_map(lambda e, p: d * e + (1.0 - d) * p,
-                                    state["ema"], new_params)
+
+        def ema(e, p):
+            if not inplace:
+                return d * e + (1.0 - d) * p
+            _in_chunks(lambda ec, pc: (d * ec + (1.0 - d) * pc,), e, p, n_out=1)
+            return e
+
+        new_state["ema"] = tree_map(ema, state["ema"], new_params)
     return new_params, new_state
+
+
+_CHUNK = 1 << 26  # elements of one in-place pass (256 MB of f32)
+
+
+@torch.no_grad()
+def _in_chunks(fn, *tensors, n_out: int) -> None:
+    """Apply `fn` to aligned flat chunks of `tensors` and write its n_out
+    results into the chunks of the first n_out, in place."""
+    flat = [t.reshape(-1) for t in tensors]
+    for t, f in zip(tensors[:n_out], flat):
+        if f.data_ptr() != t.data_ptr() or not t.is_contiguous():
+            raise ValueError("an in-place optimizer leaf must be contiguous")
+    for s in range(0, flat[0].numel(), _CHUNK):
+        outs = fn(*(f[s:s + _CHUNK] for f in flat))
+        for f, o in zip(flat[:n_out], outs):
+            f[s:s + _CHUNK].copy_(o)
 
 
 def inference_params(state: dict, params):

@@ -1,10 +1,12 @@
-"""Session façade (port of the NeRF and geometry parts of the JAX
-package's session.py::Session): load a NeRF scene and train it, save and
-load training snapshots, load a render-only snapshot or a reference .ingp
-snapshot, or load a geometry scene (meshes and NeRF objects); render live
-(the streaming ray-marched renderer, the default), or bake and render
-slab-sweep frames or baked gather frames.  A trained session renders and bakes from the
-optimizer's EMA shadow of the params."""
+"""Session façade (port of the JAX package's session.py::Session): load a
+NeRF scene and train it, save and load training snapshots, load a
+render-only snapshot or a reference .ingp snapshot, or load a geometry
+scene (meshes and NeRF objects); render live (the streaming ray-marched
+renderer, the default), or bake and render slab-sweep frames or baked
+gather frames.  Image (.exr), SDF (.obj / .stl) and volume (.nvdb) scenes
+load, train and render through the same calls; NeRF and SDF fields export
+meshes (save_mesh, optimise_mesh_step).  A trained session renders and
+bakes from the optimizer's EMA shadow of the params."""
 
 from __future__ import annotations
 
@@ -16,8 +18,14 @@ import torch
 
 from sienerf_torch.common import TestbedMode
 from sienerf_torch.convert import train_state_from_jax, train_state_to_jax
+from sienerf_torch.engines.image import ImageEngine
 from sienerf_torch.engines.nerf import NerfEngine
+from sienerf_torch.engines.sdf import SdfEngine
+from sienerf_torch.engines.volume import VolumeEngine
+from sienerf_torch.geom.mesh_io import load_mesh, normalize_to_unit_cube, save_obj, save_ply
 from sienerf_torch.io import msgpack_lite
+from sienerf_torch.io.image_io import load_image
+from sienerf_torch.io.nanovdb import read_nanovdb
 from sienerf_torch.io.nerf_dataset import NerfDataset, load_nerf_dataset
 from sienerf_torch.io.snapshot import (
     grid_config_for_snapshot,
@@ -25,6 +33,14 @@ from sienerf_torch.io.snapshot import (
     render_snapshot_from_payload,
     save_snapshot,
 )
+from sienerf_torch.models.nerf_network import (
+    apply_density_activation,
+    apply_rgb_activation,
+    density_raw,
+    nerf_apply,
+)
+from sienerf_torch.models.single_network import apply_single_network
+from sienerf_torch.ops.meshing import extract_mesh, optimise_mesh
 from sienerf_torch.ops.optim import inference_params
 from sienerf_torch.ops.samplers import ld_pixel_offset
 from sienerf_torch.utils.config import default_configs_dir, load_network_config
@@ -114,13 +130,12 @@ class Session:
         a geometry scene JSON, whose snapshot-backed NeRF objects load with
         it.  Dataset options: downscale, max_images, split; engine options:
         train_batch_size, grid_size, train_k, near_density_reg,
-        near_reg_fraction (geometry: data_root).  Image, SDF
-        and volume modes are not ported yet."""
+        near_reg_fraction (geometry: data_root).  An image, a mesh or an
+        .nvdb volume loads its mode's engine (configs/<mode>/base.json by
+        default; option batch_size, and host_gt for SDF) with fresh
+        params."""
         scene = Path(scene)
         mode = mode_from_scene(scene)
-        if mode in (TestbedMode.IMAGE, TestbedMode.SDF, TestbedMode.VOLUME):
-            raise NotImplementedError(
-                f"{scene}: {mode.value} mode is not ported yet: Slice F of ROADMAP.md")
         if mode == TestbedMode.NONE:
             raise ValueError(f"{scene} is a snapshot: load it with load_snapshot")
         self._baked = None
@@ -139,8 +154,13 @@ class Session:
             self.state = {}
             self._generator = None
             return self
-        cfg_path = Path(network) if network else self.configs_dir / "nerf" / "base.json"
+        cfg_path = Path(network) if network else self.configs_dir / mode.value / "base.json"
         self.network_config = load_network_config(cfg_path)
+        self._generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        if mode in (TestbedMode.IMAGE, TestbedMode.SDF, TestbedMode.VOLUME):
+            self.engine, self.state = _single_network_engine(
+                mode, scene, self.network_config, self.device, self.seed, engine_kwargs)
+            return self
         ds = load_nerf_dataset(scene, **{k: v for k, v in engine_kwargs.items()
                                          if k in ("downscale", "max_images", "split")})
         ekw = {k: v for k, v in engine_kwargs.items()
@@ -149,7 +169,6 @@ class Session:
         self.engine = NerfEngine.create(self.network_config, ds, device=self.device, **ekw)
         self.state = self.engine.init(self.seed)
         self.dataset = ds
-        self._generator = torch.Generator(device=self.device).manual_seed(self.seed)
         return self
 
     def reload_network_from_file(self, network: str | Path | None = None):
@@ -161,8 +180,10 @@ class Session:
         return self.load_file(scene, network=network, **getattr(self, "_engine_kwargs", {}))
 
     def train(self, n_steps: int) -> float:
-        """Train in bundles of engine.grid_interval steps until at least
-        n_steps have run -> the last bundle's mean loss."""
+        """Train until at least n_steps have run -> the last loss: NeRF in
+        bundles of engine.grid_interval steps, SDF and volume in bundles of
+        16, image one step at a time (each counted as 16 training steps, as
+        the reference's session counts them)."""
         if self.mode == TestbedMode.GEOMETRY:
             raise RuntimeError("geometry scenes train their NeRF objects separately")
         if self.engine is None:
@@ -175,11 +196,20 @@ class Session:
                 self.seed + self.training_step)
         done = 0
         while done < n_steps:
-            self.state, loss, _ = self.engine.train_bundle(self.state, self._generator)
+            if isinstance(self.engine, ImageEngine):
+                p, o, loss = self.engine.train_step(self.state["params"], self.state["opt"],
+                                                    self._generator)
+                self.state = {"params": p, "opt": o}
+                done, self.training_step = done + 1, self.training_step + 16
+            elif isinstance(self.engine, NerfEngine):
+                self.state, loss, _ = self.engine.train_bundle(self.state, self._generator)
+                done += self.engine.grid_interval
+                self.training_step += self.engine.grid_interval
+            else:
+                self.state, loss = self.engine.train_bundle(self.state, self._generator)
+                done, self.training_step = done + 16, self.training_step + 16
             self.loss = float(loss)
             self.loss_graph.append(self.loss)
-            done += self.engine.grid_interval
-            self.training_step += self.engine.grid_interval
             self._baked = None  # a bake is of the params it was made from
         return self.loss
 
@@ -282,15 +312,33 @@ class Session:
         averages passes in float64, each with a low-discrepancy subpixel
         offset; the sweep adds a stratified slab-phase jitter and the baked
         renderer a stratified chain-phase jitter.  A geometry scene renders
-        its live hybrid frame (GeometryEngine.render_frame)."""
+        its live hybrid frame (GeometryEngine.render_frame); an image its
+        network at pixel centres (alpha 1 for three channels); an SDF its
+        sphere-traced frame (alpha 1; SdfEngine.render_frame's options in
+        kw); a volume its delta-tracked frame of spp passes, alpha the
+        opacity (VolumeEngine.render_frame's options in kw)."""
         if self.engine is None:
             raise RuntimeError("load a scene or a snapshot first")
+        if not isinstance(self.engine, NerfEngine) and renderer != "live":
+            raise ValueError(f"renderer={renderer!r} is NeRF-only (mode is {self.mode.value})")
         if self.mode == TestbedMode.GEOMETRY:
-            if renderer != "live":
-                raise ValueError(f"renderer={renderer!r} is NeRF-only (mode is geometry)")
             rgba, _ = self.engine.render_frame(width, height, camera_matrix,
                                                focal or (width, width), **kw)
             return rgba
+        if isinstance(self.engine, ImageEngine):
+            out = self.engine.render(self.state["params"], self.state["opt"], width, height)
+            if out.shape[-1] == 3:
+                out = torch.cat([out, torch.ones_like(out[..., :1])], dim=-1)
+            return out
+        if isinstance(self.engine, SdfEngine):
+            img, _ = self.engine.render_frame(self.render_params(), width, height,
+                                              camera_matrix, **kw)
+            return torch.cat([img, torch.ones_like(img[..., :1])], dim=-1)
+        if isinstance(self.engine, VolumeEngine):
+            rgb, a = self.engine.render_frame(self.render_params(), width, height,
+                                              camera_matrix, focal or (width, width),
+                                              spp=spp, **kw)
+            return torch.cat([rgb, a[..., None]], dim=-1)
         if renderer not in ("sweep", "live", "baked"):
             raise ValueError(f"unknown renderer {renderer!r}")
         eng = self.engine
@@ -333,6 +381,112 @@ class Session:
             a = rgba.double()
             acc = a if acc is None else acc + a
         return (acc / spp).float()
+
+
+    # --- meshes -----------------------------------------------------------
+
+    def _mesh_field(self, thresh: float = 2.5):
+        """The field to mesh -> (density_fn of unit-cube points, iso level:
+        `thresh` of a NeRF density, 0 of an SDF, aabb min, aabb diag)."""
+        if not isinstance(self.engine, (NerfEngine, SdfEngine)):
+            raise RuntimeError(f"mesh export is for NeRF and SDF fields (mode is "
+                               f"{self.mode.value})")
+        params = self.render_params()
+        if isinstance(self.engine, NerfEngine):
+            net = self.engine.net
+
+            def dfn(unit):
+                return apply_density_activation(density_raw(net, params, unit),
+                                                net.density_activation)
+            return dfn, thresh, self.engine.aabb.min, self.engine.aabb.diag
+        net = self.engine.net
+        return (lambda unit: apply_single_network(net, params, unit)[:, 0], 0.0,
+                np.zeros(3, np.float32), np.ones(3, np.float32))
+
+    def save_mesh(self, path: str | Path, resolution: int = 256, thresh: float = 2.5,
+                  with_colors: bool = True):
+        """Marching cubes of the field at resolution^3 over its box (NeRF:
+        density at `thresh`; SDF: the zero level), saved as .obj or .ply ->
+        (vertices, faces).  NeRF vertices carry colours (the colour branch
+        looking along the inward normal, from 6-tap differences of the
+        density) and outward normals.  The mesh stays in memory for
+        optimise_mesh_step."""
+        dfn, iso, amin, adiag = self._mesh_field(thresh)
+        color_fn = None
+        if with_colors and isinstance(self.engine, NerfEngine):
+            color_fn = self._nerf_vertex_colors(dfn, amin, adiag, resolution)
+        verts, faces, cn = extract_mesh(dfn, resolution, amin, adiag, self.device, iso=iso,
+                                        color_fn=color_fn)
+        colors = normals = None
+        if cn is not None:
+            colors, normals = cn[:, :3], cn[:, 3:]
+        if str(path).endswith(".ply"):
+            save_ply(path, verts, faces, colors, normals)
+        else:
+            save_obj(path, verts, faces, colors, normals)
+        self.mesh = {"verts": verts, "faces": faces, "thresh": iso, "amin": amin,
+                     "adiag": adiag}
+        return verts, faces
+
+    def _nerf_vertex_colors(self, dfn, amin, adiag, resolution: int):
+        net, params = self.engine.net, self.render_params()
+
+        def color_fn(world):
+            amin_t = torch.as_tensor(np.asarray(amin, np.float32), device=world.device)
+            adiag_t = torch.as_tensor(np.asarray(adiag, np.float32), device=world.device)
+            unit = torch.clamp((world - amin_t) / adiag_t, 0.0, 1.0)
+            eps = 1.0 / resolution
+            eye = torch.eye(3, device=world.device)
+            offs = torch.cat([eye * eps, -eye * eps])
+            taps = torch.clamp(unit[:, None, :] + offs[None], 0.0, 1.0)
+            d6 = dfn(taps.reshape(-1, 3)).reshape(-1, 6)
+            g = d6[:, :3] - d6[:, 3:]
+            nrm = g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True), min=1e-9)
+            rgb_raw, _ = nerf_apply(net, params, unit, (nrm + 1.0) * 0.5)
+            rgb = apply_rgb_activation(rgb_raw, net.rgb_activation)
+            return torch.cat([rgb, -nrm], dim=-1)  # colours, outward normals
+        return color_fn
+
+    def optimise_mesh_step(self, n_steps: int = 1, smooth_amount: float = 2048.0,
+                           density_amount: float = 128.0, inflate_amount: float = 1.0):
+        """Refine the in-memory mesh (from save_mesh) toward the field's
+        iso-surface: n_steps Adam steps on its vertices
+        (ops/meshing.py::optimise_mesh) -> the new vertices."""
+        mesh = getattr(self, "mesh", None)
+        if not mesh or not len(mesh.get("verts", ())):
+            raise RuntimeError("no in-memory mesh: save_mesh first")
+        dfn = self._mesh_field()[0]
+        mesh["verts"] = optimise_mesh(
+            dfn, mesh["verts"], mesh["faces"], mesh["amin"], mesh["adiag"], self.device,
+            n_steps=n_steps, thresh=mesh.get("thresh", 2.5), smooth_amount=smooth_amount,
+            density_amount=density_amount, inflate_amount=inflate_amount)
+        return mesh["verts"]
+
+    def calculate_iou(self, resolution: int = 64, n_chunks: int = 8, seed: int = 0) -> float:
+        """SDF mode: the field's sign agreement with the mesh on jittered
+        grid points (SdfEngine.calculate_iou)."""
+        if not isinstance(self.engine, SdfEngine):
+            raise RuntimeError("calculate_iou is an SDF-mode operation")
+        return self.engine.calculate_iou(self.state, resolution, n_chunks, seed)
+
+
+def _single_network_engine(mode: TestbedMode, scene: Path, cfg: dict, device, seed: int,
+                           engine_kwargs: dict):
+    """The image, SDF or volume engine of a scene file and its fresh state."""
+    if mode == TestbedMode.IMAGE:
+        img = load_image(scene, as_float_linear=scene.suffix.lower() == ".exr")
+        eng = ImageEngine.create(cfg, img, device=device, **engine_kwargs)
+        params, opt = eng.init(seed)
+        return eng, {"params": params, "opt": opt}
+    if mode == TestbedMode.SDF:
+        tri = load_mesh(scene)
+        if len(tri) == 0:
+            raise ValueError(f"{scene}: the mesh has no triangles")
+        tri = normalize_to_unit_cube(tri, scale_margin=0.9)
+        eng = SdfEngine.create(cfg, tri, device=device, **engine_kwargs)
+    else:
+        eng = VolumeEngine.create(cfg, read_nanovdb(scene), device=device, **engine_kwargs)
+    return eng, eng.init(seed)
 
 
 def engine_from_snapshot(payload: dict, path, device):

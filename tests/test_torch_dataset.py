@@ -93,8 +93,11 @@ def test_load_image_matches_and_refuses_exr(tmp_path):
     for linear in (False, True):
         np.testing.assert_array_equal(load_image(tmp_path / "a.png", linear),
                                       jload(tmp_path / "a.png", linear))
-    with pytest.raises(NotImplementedError, match="EXR"):
-        load_image(tmp_path / "b.exr")
+    # EXR now reads through the port's own codec (tests/test_torch_exr.py)
+    from sienerf_tpu.io.exr import write_exr
+
+    write_exr(tmp_path / "b.exr", np.random.default_rng(3).random((5, 7, 3), np.float32))
+    np.testing.assert_array_equal(load_image(tmp_path / "b.exr"), jload(tmp_path / "b.exr"))
 
 
 def _small_network(tmp_path):
@@ -146,11 +149,13 @@ def test_trained_session_bakes_and_renders_from_the_ema_shadow(tmp_path, monkeyp
 def test_session_refuses_other_modes(tmp_path):
     from sienerf_torch.session import Session
 
-    # SDF, image and volume modes are not ported; geometry scenes are
-    # (tests/test_torch_geometry.py)
-    for scene in ("mesh.obj", "image.png", "cloud.nvdb"):
+    # SDF, image and volume scenes load since Slice F (tests/test_torch_
+    # {sdf,image,volume}.py): a file their loaders cannot read raises there;
+    # geometry scenes load (tests/test_torch_geometry.py)
+    for scene, err in (("mesh.obj", "no triangles"), ("image.png", "failed to load"),
+                       ("cloud.nvdb", "not a NanoVDB")):
         (tmp_path / scene).write_text("v 0 0 0\n")
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises((ValueError, IOError), match=err):
             Session(device="cpu").load_file(tmp_path / scene)
     (tmp_path / "scene.geometry.json").write_text("{}")
     assert Session(device="cpu").load_file(tmp_path / "scene.geometry.json").engine.objects == []

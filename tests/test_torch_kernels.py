@@ -580,3 +580,120 @@ def test_gathers_on_the_frame_index_streams(cuda, monkeypatch, fine):
             assert torch.equal(gather_small(table, idx), gather_small_plain(table, idx))
             assert gather_small.launches == n + 1
         assert int(idx.min()) >= 0 and int(idx.max()) < table.shape[0]
+
+
+# --- the image, SDF and volume modes: plain PyTorch on the card ------------
+
+
+def _mode_engines(mode, device):
+    """A small engine of `mode` (8 levels, 2^14 rows) on `device`, on an
+    input built in code."""
+    import copy
+
+    from sienerf_torch.engines.image import ImageEngine
+    from sienerf_torch.engines.sdf import SdfEngine
+    from sienerf_torch.engines.volume import VolumeEngine
+    from sienerf_torch.geom.mesh_io import box_mesh, icosphere, normalize_to_unit_cube
+    from sienerf_torch.io.nanovdb import synthetic_fog_volume
+    from sienerf_torch.utils.config import default_configs_dir, load_network_config
+
+    cfg = copy.deepcopy(load_network_config(default_configs_dir() / mode / "base.json"))
+    cfg["encoding"].update(n_levels=8, log2_hashmap_size=14)
+    if mode == "image":
+        y, x = np.meshgrid(np.linspace(0, 1, 96), np.linspace(0, 1, 96), indexing="ij")
+        img = np.stack([np.sin(30 * x * y), x, y, np.ones_like(x)], -1).astype(np.float32)
+        return ImageEngine.create(cfg, img, batch_size=1 << 13, device=device)
+    if mode == "sdf":
+        tri = np.concatenate([icosphere(3, 0.3) + np.float32([0.35, 0.5, 0.5]),
+                              box_mesh((0.7, 0.3, 0.3), (0.95, 0.7, 0.6))])
+        return SdfEngine.create(cfg, normalize_to_unit_cube(tri, scale_margin=0.9),
+                                batch_size=1 << 13, device=device)
+    return VolumeEngine.create(cfg, synthetic_fog_volume(48, "shell"), batch_size=1 << 13,
+                               device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["image", "sdf", "volume"])
+def test_card_mode_step_matches_the_cpu_step(cuda, mode):
+    """One injected training step of each mode, card against CPU: the loss
+    at rtol 1e-4, and at 1e-5 with the card's bf16 roundings put into the
+    CPU step (ops/mlp.py::tap_roundings); gradients at the tolerances of
+    tests/test_torch_hashgrad.py (MLP matrices rtol 1e-2 / atol 1e-3 and
+    within 2 % of their largest entry, the table within 2 %)."""
+    from sienerf_torch.ops.mlp import tap_roundings
+    from sienerf_torch.ops.optim import tree_leaves, tree_map
+
+    cpu, card = _mode_engines(mode, "cpu"), _mode_engines(mode, cuda)
+    state = cpu.init(0)
+    params = state[0] if mode == "image" else state["params"]
+    gen = torch.Generator().manual_seed(1)
+    if mode == "image":
+        args = (torch.rand((1 << 13, 2), generator=gen),)
+    elif mode == "sdf":
+        pos = torch.from_numpy(cpu.sample_batch_host(np.random.default_rng(2)))
+        args = (pos, cpu.ground_truth(pos))
+    else:
+        args = (torch.rand((1 << 13, 3), generator=gen),)
+    loss, grads = cpu.loss_and_grads(params, *args)
+    with tap_roundings() as tap:
+        closs, cgrads = card.loss_and_grads(tree_map(lambda t: t.to(cuda), params),
+                                            *(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    with tap_roundings(replace=[v.detach().cpu() for v in tap.seen]):
+        loss_inj = cpu.loss_and_grads(params, *args)[0]
+    np.testing.assert_allclose(float(closs), float(loss), rtol=1e-4)
+    np.testing.assert_allclose(float(closs), float(loss_inj), rtol=1e-5)
+    for a, b in zip(tree_leaves(cgrads), tree_leaves(grads)):
+        a = a.cpu()
+        assert float((a - b).abs().max()) <= 0.02 * float(b.abs().max())
+        if a.dim() == 2:
+            assert torch.allclose(a, b, rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_card_sdf_and_volume_frames_match_the_cpu(cuda):
+    """Small frames of a briefly fitted SDF and volume, card against CPU:
+    the sphere tracer's hit masks within 1 % and the colours at the MLP
+    bound on >= 97 % of pixels; delta tracking on the same draws, hits
+    within 0.5 % and colours at the MLP bound on >= 99 % of the others."""
+    import dataclasses
+
+    from sienerf_torch.ops.optim import tree_map
+    from sienerf_torch.utils.camera import look_at_matrix
+
+    cam = look_at_matrix([1.3, 0.9, -0.5], [0.5, 0.5, 0.5])
+    card = _mode_engines("sdf", cuda)
+    state = card.init(0)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for _ in range(4):
+        state, _ = card.train_bundle(state, gen)
+    cpu = _mode_engines("sdf", "cpu")
+    p = tree_map(lambda t: t.cpu(), state["params"])
+    a, ad = card.render_frame(state["params"], 48, 32, cam)
+    b, bd = cpu.render_frame(p, 48, 32, cam)
+    assert float((torch.isfinite(ad.cpu()) != torch.isfinite(bd)).float().mean()) <= 0.01
+    assert float(torch.isclose(a.cpu(), b, rtol=1e-2, atol=1e-3).all(-1).float().mean()) >= 0.97
+    card = _mode_engines("volume", cuda)
+    state = card.init(0)
+    for _ in range(2):
+        state, _ = card.train_bundle(state, gen)
+    cpu = dataclasses.replace(card, gt_density=card.gt_density.cpu(), device=torch.device("cpu"))
+    g, cache = torch.Generator().manual_seed(3), []
+
+    def draws_on(d):
+        def draw(_pass, i, n):
+            while len(cache) <= i:
+                cache.append((1e-7 + torch.rand((n,), generator=g) * (1 - 1e-7),
+                              torch.rand((n,), generator=g)))
+            return tuple(x.to(d) for x in cache[i])
+        return draw
+
+    cam = look_at_matrix([0.5, 0.5, -1.5], [0.5, 0.5, 0.5])
+    p = tree_map(lambda t: t.cpu(), state["params"])
+    a, aa = card.render_frame(state["params"], 40, 24, cam, (50.0, 50.0), spp=1,
+                              draw=draws_on(cuda))
+    b, ba = cpu.render_frame(p, 40, 24, cam, (50.0, 50.0), spp=1, draw=draws_on("cpu"))
+    differ = aa.cpu() != ba
+    assert float(differ.float().mean()) <= 0.005
+    close = torch.isclose(a.cpu(), b, rtol=1e-2, atol=1e-3).all(-1)[~differ]
+    assert float(close.float().mean()) >= 0.99
