@@ -14,9 +14,9 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   (sienerf_torch/csrc/gather.cu) at the probe's own sizes, each kernel timed
   by bursts of launches and by single calls;
 - the live path: Session.render(renderer="live"), the streaming
-  ray-marched renderer, at 1280x720 (one frame at tile 2^14, the timed
-  and the phase-synchronised frames at tile 2^17), a 160x90 frame of it
-  against the same code on the CPU, and the sweep frames' PSNR and SSIM
+  ray-marched renderer, at 1280x720 (the timed and the phase-synchronised
+  frames at tile 2^17; a 320x180 frame at tiles 2^14 and 2^17 for its tile
+  independence), a 160x90 frame of it against the same code on the CPU, and the sweep frames' PSNR and SSIM
   against the live frames;
 - the training path: 55 teacher views of the fox field rendered through
   the sweep (K1, K2) at 1280x720 make an in-memory dataset (50 to train, 5
@@ -65,6 +65,19 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   volume frames to the CPU at a small size.  None launches K1, K2, G1 or
   G2: the JAX package runs these modes in XLA alone.
 
+- every NeRF configuration and the rest of the port's paths: `[configs]`
+  each configs/nerf/*.json at full width from a seeded init on the fox's
+  occupancy (an R=128 bake, a 320x180 sweep frame through K1 and K2 against
+  the plain frame, K1 against plain on its rows; K1 on the fox's R=256 rows
+  with the colour MLPs of big.json and base_0layer.json, timed beside its
+  bound), `[takikawa]` configs/sdf/takikawa.json on the [sdf] mesh (the
+  octree at depth 10, steps, IoU, one step against the CPU, a 720p frame),
+  `[fine]` the trained student's fine render grid, the live frame with
+  and without it, and a 160x90 frame through it against the CPU, `[triplane]` configs/nerf/tensor.json (one step against
+  the CPU, frames with K1 and K2 held to plain), and `[png]` the training
+  views written as PNGs, loaded by Session.load_file, trained and scored
+  by compare_view.
+
 It builds every kernel from the sources in the checkout, holds each against
 its plain PyTorch version on the card, checks the sweep frames against the
 plain-version frames, counts the kernel launches of each path, and times
@@ -107,8 +120,9 @@ LIVE_SMALL = (160, 90)  # the live frame that is held to the CPU run
 # ray across a voxel boundary
 LIVE_MIN_AGREE = 0.99
 LIVE_BIG_TILE = 1 << 17
-# timed tile-2^17 live frames: one, so that the baked phase fits the limit
-LIVE_BIG_TIMED = 1
+# the live frame's tile independence, checked at a small size with a tile
+# that many rays refill
+LIVE_SMALL_TILE_CHECK, LIVE_SMALL_TILE = (320, 180), 1 << 14
 QUALITY_MIN_DB = 15.0  # a mismatched network config renders fog at ~11 dB
 # the training phase: teacher views on a Fibonacci sphere around the cube
 # centre; every TRAIN_HOLD_EVERY-th (from the middle of the first run) is
@@ -151,6 +165,9 @@ REPLACES = {"shade": f"{TPU_OPS}/shade_pallas.py:265", "sweep": f"{TPU_OPS}/swee
 HYBRID_EYE, HYBRID_SPHERE_AT, HYBRID_RADIUS = (2.1, 0.5, 0.6), 0.35, 0.12
 PROBE_BOX = ([0.3, 0.2, 0.2], [1.2, 0.9, 0.9])
 HYBRID_SMALL = (320, 180)
+# timed 720p hybrid frames (3.59-3.60 s each on an H100, within 0.1 % of one
+# another): three, after the first and a warm-up
+HYBRID_TIMED = 3
 # kernel frame vs plain frame: a NeRF fragment whose depth lies within
 # rounding of the mesh's can fall on either side of the depth test
 HYBRID_MIN_AGREE = 0.999
@@ -198,6 +215,16 @@ SDF_EYE, SDF_SMALL = (1.3, 0.9, -0.5), (160, 90)
 VOLUME_RES, VOLUME_BUNDLES, VOLUME_SPP = 256, 8, 4
 VOLUME_EYE, VOLUME_FOCAL, VOLUME_SMALL = (0.5, 0.5, -1.5), 1600.0, (64, 36)
 MESH_RES, MESH_OPT_STEPS = 256, 3
+# every configs/nerf/*.json at full width from a seeded init on the fox's
+# occupancy: a bake at CONFIG_BAKE_RES and CONFIG_SMALL sweep frames; K1 timed
+# on the fox's R=256 rows with the widest and the shallowest colour MLPs
+CONFIG_BAKE_RES, CONFIG_SMALL = 128, (320, 180)
+CONFIG_TIMED = ("big", "base_0layer")
+# the Takikawa SDF (configs/sdf/takikawa.json) on the [sdf] phase's mesh;
+# the fine render grid; the PNG dataset of the [train] views
+TAKIKAWA_BUNDLES = 6
+FINE_FACTOR = 4
+PNG_VIEWS, PNG_STEPS, PNG_COMPARE_DOWNSCALE = 50, 16, 2
 
 
 class SmokeFailure(Exception):
@@ -647,14 +674,16 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
     out["first_frame_s"] = time.perf_counter() - t  # includes the R=256 bake
     frame(renderer="sweep")
     times = []
-    for _ in range(5):
+    for _ in range(HYBRID_TIMED):
         t = time.perf_counter()
         rgba, depth = frame(renderer="sweep")
         times.append(1e3 * (time.perf_counter() - t))
     out["launches"] = {"shade": shade_volume.launches, "sweep": sweep_composite_kernel.launches}
     out["frame_ms"], out["frame_ms_runs"] = statistics.median(times), times
+    n_frames = HYBRID_TIMED + 2
     for name, n in out["launches"].items():
-        check(n == 7, f"hybrid path: kernel {name} launched {n} times for 7 frames")
+        check(n == n_frames, f"hybrid path: kernel {name} launched {n} times for {n_frames} "
+                             f"frames")
     cover = float(torch.isfinite(depth).float().mean())
     mesh_hit = geo.render_mesh_rays(*geo._frame_rays(WIDTH, HEIGHT, cam, FOCAL, dev))[2]
     out["mesh_cover"] = float(mesh_hit.float().mean())
@@ -668,7 +697,7 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
     synced = 1e3 * (time.perf_counter() - t)
     out["split_ms"] = {k: 1e3 * v for k, v in stats["phase_s"].items()}
     log(f"[hybrid] 1280x720 sweep frame: first {out['first_frame_s']:.2f} s (bake included), "
-        f"median of 5 {out['frame_ms']:.1f} ms (runs {[round(x, 1) for x in times]}); launches "
+        f"median of {HYBRID_TIMED} {out['frame_ms']:.1f} ms (runs {[round(x, 1) for x in times]}); launches "
         f"{out['launches']}; mesh covers {100 * out['mesh_cover']:.1f} % of the pixels, "
         f"finite depth on {100 * cover:.1f} %; axis {stats['axis']} flip {stats['flip']}")
     log(f"[hybrid] where the time goes (one frame, the device synchronised after each part, "
@@ -701,6 +730,11 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
                                                           t_stop, **kw), 10)
     out["k2_plain_ms"] = cuda_ms(lambda: sweep_composite_plain(view, o_c, eb, ec, near, min_t,
                                                                t_stop, **kw), 2)
+    out["k2_bound"] = k2_bound_of(view, stats["flip"], o_c, eb, ec, near, min_t, R, K, t_stop)
+    log(f"[hybrid] K2 with the mesh's t_stop: {out['k2_ms']:.4f} ms (plain "
+        f"{out['k2_plain_ms']:.1f} ms), bound {out['k2_bound']['bound_ms']:.4f} ms "
+        f"({out['k2_bound']['bound_by']}: {out['k2_bound']['bytes'] / 1e9:.4f} GB, "
+        f"{out['k2_bound']['samples']} samples)")
     del want, view, vol, stats
     plain, _ = frame(renderer="sweep", impl="plain")
     agree = frame_agreement("hybrid sweep frame vs plain (K1 and K2 plain)", rgba, plain)
@@ -1121,6 +1155,27 @@ def determinism_check(eng, state, dev) -> dict:
 
 
 # -- the image, SDF and volume modes and mesh export (Slice F) ----------------
+
+
+def k2_bound_of(view, flip: bool, o_c, eb, ec, near, min_t, R: int, K: int,
+                t_stop=None) -> dict:
+    """K2's bound from this run's inputs, counted with the plain composite's
+    stats: the distinct texels (4 bf16 channels) that live samples read,
+    the schedule, the gnomonic coordinates, t_stop when given, and the six
+    f32 output maps at the HBM rate; K2_FLOPS_PER_SAMPLE a live sample at
+    the f32 peak -> the larger of the two."""
+    from sienerf_torch.ops.sweep import sweep_composite
+
+    stats: dict = {}
+    sweep_composite(view.flip(1) if flip else view, o_c, eb, ec, near, min_t, t_stop,
+                    resolution=R, n_cascades=K, stats=stats)
+    samples, texels = int(stats["samples"]), int(stats["texels"])
+    hi, wi = eb.shape[0], ec.shape[0]
+    nbytes = (texels * 4 * 2 + K * R * 5 * 4 + (hi + wi) * 4 + hi * wi * 6 * 4
+              + (hi * wi * 4 if t_stop is not None else 0))
+    tb, to = 1e3 * nbytes / HBM_BPS, 1e3 * samples * K2_FLOPS_PER_SAMPLE / F32_FLOPS
+    return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": nbytes, "samples": samples, "texels": texels}
 
 
 def sync_ms(fn) -> float:
@@ -1587,6 +1642,472 @@ def mesh_phase(fox, sdf, tmp: Path) -> dict:
     return out
 
 
+def configs_phase(fox, rows, scale, n_live, dev, cuda_ms, general_ptxas) -> dict:
+    """Every configs/nerf/*.json at full width from a seeded init, with the
+    fox's occupancy bitfield: a bake at CONFIG_BAKE_RES, a 320x180 sweep
+    frame through K1 and K2 against the plain frame (each config's
+    launches counted from 0), K1 against shade_volume_plain on the bake's
+    rows; then K1 on the fox's R=256 rows with the colour MLPs of
+    CONFIG_TIMED, timed, beside its bound."""
+    import numpy as np
+    import torch
+
+    from sienerf_torch.engines.nerf import NerfEngine
+    from sienerf_torch.engines.nerf_sweep import _fused_prep_eligible, render_frame_sweep
+    from sienerf_torch.io.nerf_dataset import NerfDataset
+    from sienerf_torch.models.nerf_network import init_nerf_network
+    from sienerf_torch.ops.mlp import mlp_layer_dims
+    from sienerf_torch.ops.shade import (
+        _shade_general,
+        general_occupancy,
+        shade_mlp_layout,
+        shade_volume,
+        shade_volume_plain,
+    )
+    from sienerf_torch.utils.camera import look_at_matrix
+    from sienerf_torch.utils.config import load_network_config
+
+    out = {"by_config": {}}
+    bitfield = fox.state["occ"]["bitfield"]
+    cam = look_at_matrix(EYES[0], [0.5, 0.5, 0.5])
+    sw, sh = CONFIG_SMALL
+    focal_s = tuple(f * sw / WIDTH for f in FOCAL)
+    weights = {}
+    for path in sorted((ROOT / "configs" / "nerf").glob("*.json")):
+        name = path.stem
+        t = time.perf_counter()
+        cfg = load_network_config(path)
+        eng = NerfEngine.create(cfg, NerfDataset.placeholder(4.0), device=dev)
+        check((eng.occ.n_cascades, eng.occ.grid_size) == tuple(bitfield.shape[:2]),
+              f"[configs] {name}: the occupancy grid is not the fox's")
+        params = init_nerf_network(eng.net, torch.Generator(device=dev).manual_seed(0), dev)
+        weights[name] = (params["rgb_mlp"], eng.net.rgb_mlp)
+        grid, meta = eng.bake_features(params, {"bitfield": bitfield},
+                                       resolution=CONFIG_BAKE_RES)
+        torch.cuda.synchronize()
+        bake_s = time.perf_counter() - t
+        check(_fused_prep_eligible(eng, grid), f"[configs] {name}: K1 does not take it")
+        zero_kernel_counts()
+        t = time.perf_counter()
+        img, _ = render_frame_sweep(eng, params, grid, meta, cam, focal_s, width=sw, height=sh)
+        torch.cuda.synchronize()
+        frame_ms = 1e3 * (time.perf_counter() - t)
+        launches = kernel_counts()
+        check(launches["shade"] == 1 and launches["sweep"] == 1,
+              f"[configs] {name}: launches {launches}")
+        ref, _ = render_frame_sweep(eng, params, grid, meta, cam, focal_s, width=sw,
+                                    height=sh, impl="plain")
+        f_err = compare(f"[configs] {name} frame vs plain", img, ref, **FRAME_TOL)
+        R, K = meta["resolution"], meta["n_cascades"]
+        kw = dict(resolution=R, n_cascades=K, density_act=eng.net.density_activation,
+                  rgb_act=eng.net.rgb_activation, rgb_mlp=eng.net.rgb_mlp)
+        o = torch.as_tensor(np.asarray(cam, np.float32)[:3, 3], device=dev)
+        vol = shade_volume(grid["rows"], grid["scale"], o, params["rgb_mlp"], **kw)
+        torch.cuda.synchronize()
+        k1_err = compare(f"[configs] {name} K1 vs plain", vol,
+                         shade_volume_plain(grid["rows"], grid["scale"], o, params["rgb_mlp"],
+                                            **kw), **K1_TOL)
+        kept = int((grid["rows"][:, 0] != -32768).sum())
+        out["by_config"][name] = {
+            "rgb_mlp": [list(d) for d in mlp_layer_dims(eng.net.rgb_mlp)],
+            "pos_otype": eng.net.pos_otype, "bake_s": bake_s, "kept": kept,
+            "frame_ms": frame_ms, "launches": launches, "k1_max_abs_err": k1_err,
+            "frame_max_abs_err": f_err, "mean_alpha": float(img[..., 3].mean())}
+        log(f"[configs] {name}: colour MLP {mlp_layer_dims(eng.net.rgb_mlp)}, "
+            f"{eng.net.pos_otype}; bake R={R} {bake_s:.2f} s ({kept} kept); {sw}x{sh} sweep "
+            f"frame {frame_ms:.1f} ms, launches K1 {launches['shade']} K2 {launches['sweep']}, "
+            f"mean alpha {float(img[..., 3].mean()):.3f}")
+        del eng, params, grid, img, ref, vol
+        torch.cuda.empty_cache()
+    out["k1_max_abs_err"] = max(c["k1_max_abs_err"] for c in out["by_config"].values())
+    out["launches"] = {k: sum(c["launches"][k] for c in out["by_config"].values())
+                       for k in ("shade", "sweep", "gather_rows", "gather_small")}
+
+    # K1 at the fox's R=256 bake with the widest and the shallowest colour MLP
+    R, K = BAKE_RES, scale.shape[0]
+    Rv = R + 1
+    o = torch.as_tensor(np.asarray(cam, np.float32)[:3, 3], device=dev)
+    acts = dict(density_act=fox.engine.net.density_activation,
+                rgb_act=fox.engine.net.rgb_activation)
+    # the general path on the fox's own 32-64-64-3: the tuned path's bits
+    fws, fmlp = fox.state["params"]["rgb_mlp"], fox.engine.net.rgb_mlp
+    kw = dict(resolution=R, n_cascades=K, rgb_mlp=fmlp, **acts)
+    tuned = shade_volume(rows, scale, o, fws, **kw)
+    general = _shade_general(rows, scale, o, fws, **kw)
+    torch.cuda.synchronize()
+    out["fox_general_equal"] = bool(torch.equal(tuned.contiguous().view(torch.int16),
+                                                general.contiguous().view(torch.int16)))
+    del tuned, general
+    out["fox_general_ms"] = statistics.median(
+        [cuda_ms(lambda: _shade_general(rows, scale, o, fws, **kw), 1, warmup=1)
+         for _ in range(10)])
+    log(f"[configs] K1's general path on the fox's 32-64-64-3 at R={R}: bit-equal to the "
+        f"tuned path {out['fox_general_equal']}, {out['fox_general_ms']:.3f} ms (median of ten)")
+    check(out["fox_general_equal"], "[configs] the general path differs from the tuned one")
+    out["timed"] = {}
+    for name in CONFIG_TIMED:
+        ws, mlp = weights[name]
+        n_hidden, width = shade_mlp_layout([w.shape for w in ws])
+        kw = dict(resolution=R, n_cascades=K, rgb_mlp=mlp, **acts)
+        vol = shade_volume(rows, scale, o, ws, **kw)
+        torch.cuda.synchronize()
+        err = compare(f"[configs] {name} K1 vs plain at the fox's R={R}", vol,
+                      shade_volume_plain(rows, scale, o, ws, **kw), **K1_TOL)
+        del vol
+        times = [cuda_ms(lambda: shade_volume(rows, scale, o, ws, **kw), 1, warmup=1)
+                 for _ in range(10)]
+        plain_ms = cuda_ms(lambda: shade_volume_plain(rows, scale, o, ws, **kw), 2, warmup=1)
+        # bytes as the fox's K1 (a kept row 32 bytes, a culled one its
+        # sentinel, 8 bytes out a vertex); flops of the config's own MLP on
+        # this bake's kept vertices, as K1_FLOPS_PER_VERTEX counts the fox's
+        # (not the kernel's padding of the 3 outputs to one n8 tile)
+        flops = 2 * sum(a * b for a, b in mlp_layer_dims(mlp))
+        nbytes = (n_live * 32 + (rows.shape[0] - n_live) * 2 + K * Rv ** 3 * 8
+                  + scale.numel() * 4 + 12 + sum(w.numel() for w in ws) * 2)
+        tb, to = 1e3 * nbytes / HBM_BPS, 1e3 * n_live * flops / BF16_FLOPS
+        warps, blocks, smem = general_occupancy(ws)
+        out["timed"][name] = {
+            "ms": statistics.median(times), "ms_range": (min(times), max(times)),
+            "plain_ms": plain_ms, "max_abs_err": err, "bytes": nbytes,
+            "flops_per_vertex": flops, "tflop": n_live * flops / 1e12,
+            "bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations",
+            "bytes_ms": tb, "flops_ms": to, "warps_a_block": warps, "blocks_an_sm": blocks,
+            "smem_bytes": smem, "ptxas": general_ptxas}
+        log(f"[configs] K1 {name} ({n_hidden} hidden x {width}) on the fox's R={R} rows "
+            f"({n_live} kept): {statistics.median(times):.3f} ms (ten timings "
+            f"{min(times):.3f}-{max(times):.3f}; plain {plain_ms:.1f} ms); bound "
+            f"{max(tb, to):.3f} ms ({'bytes' if tb >= to else 'operations'}: "
+            f"{nbytes / 1e9:.3f} GB -> {tb:.3f} ms, {flops} flops a kept vertex, "
+            f"{n_live * flops / 1e12:.3f} TFLOP -> {to:.3f} ms); {warps} warps a block, "
+            f"{blocks} blocks an SM, {smem} bytes of shared memory; {general_ptxas}")
+    return out
+
+
+def takikawa_phase(dev, obj: Path) -> dict:
+    """configs/sdf/takikawa.json (the octree at depth 10, levels 4-9
+    encoded) on the [sdf] phase's OBJ through Session.load_file: the
+    octree, steps, IoU, one injected step against the CPU, a 720p frame."""
+    import numpy as np
+    import torch
+
+    from sienerf_torch.ops.optim import tree_map
+    from sienerf_torch.session import Session
+    from sienerf_torch.utils.camera import look_at_matrix
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    t = time.perf_counter()
+    sess = Session(device=dev)
+    sess.load_file(obj, network=ROOT / "configs" / "sdf" / "takikawa.json")
+    out["load_s"] = time.perf_counter() - t
+    eng = sess.engine
+    out["octree"] = dict(eng.octree_stats)
+    log(f"[takikawa] {obj.name} loaded in {out['load_s']:.2f} s: octree depth "
+        f"{out['octree']['depth']}, {out['octree']['nodes']} nodes, "
+        f"{out['octree']['vertices']} vertices ({4 * 8 * out['octree']['vertices'] / 1e6:.1f} "
+        f"MB of f32 features), built in {out['octree']['build_s']:.2f} s; MLP input "
+        f"{eng.net.mlp.n_input_dims}, batch {eng.batch_size}")
+    check(out["octree"]["depth"] == 10 and eng.net.mlp.n_input_dims == 48
+          and eng.batch_size == 1 << 16, "[takikawa] not at the configuration's full width")
+    iou0 = sess.calculate_iou(SDF_IOU_RES)
+    ms, losses = bundles_ms(lambda: sess.train(16), TAKIKAWA_BUNDLES, 16)
+    stats = {"sync_phases": True}
+    sess.state, _ = eng.train_bundle(sess.state, sess._generator, stats=stats)
+    sess.training_step += 16
+    out["split_ms"] = phase_split(stats, 16)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    iou1 = sess.calculate_iou(SDF_IOU_RES)
+    out.update(ms_per_step=statistics.median(ms), ms_runs=[round(x, 2) for x in ms],
+               loss_first_last=(losses[0], losses[-1]), iou_untrained=iou0, iou=iou1)
+    log(f"[takikawa] {TAKIKAWA_BUNDLES} bundles of 16 steps: {out['ms_per_step']:.2f} ms a "
+        f"step (median; bundles {out['ms_runs']}), loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+        f"a synced bundle a step: {out['split_ms']} ms; peak memory "
+        f"{out['peak_mem_gb']:.2f} GB; IoU at {SDF_IOU_RES}^3 {iou0:.4f} -> {iou1:.4f} "
+        f"after {sess.training_step} steps")
+    check(np.isfinite(losses).all() and iou1 > iou0, "[takikawa] the IoU did not rise")
+    pos, tgt = eng.draw_bundle(torch.Generator(device=dev).manual_seed(6), 1)
+    pos, tgt = pos[0, :MODE_CHECK_BATCH].cpu(), tgt[0, :MODE_CHECK_BATCH].cpu()
+    ceng = on_cpu(eng, bvh_dev=eng.bvh_dev, tri_normals=eng.tri_normals, tri_cdf=eng.tri_cdf,
+                  tak_tables=eng.tak_tables)
+    engs = [ceng, eng]
+    out["card_vs_cpu"] = card_vs_cpu_step(
+        "takikawa", lambda prm, d: engs[d != torch.device("cpu")].loss_and_grads(
+            prm, pos.to(d), tgt.to(d)),
+        tree_map(lambda x: x.cpu(), sess.state["params"]), dev)
+    cam = look_at_matrix(SDF_EYE, [0.5, 0.5, 0.5])
+    fstats = {}
+    box = []
+    out["frame_ms"] = sync_ms(lambda: box.append(sess.render(WIDTH, HEIGHT, cam, stats=fstats)))
+    sstats = {"sync_phases": True}
+    sess.render(WIDTH, HEIGHT, cam, stats=sstats)
+    out["frame_split_ms"] = phase_split(sstats)
+    out["trace_iters"] = fstats["trace_iters"]
+    frame = box[0]
+    hit = float((frame[..., :3] != 1.0).any(dim=-1).float().mean())
+    log(f"[takikawa] {WIDTH}x{HEIGHT} frame, shadows on: {out['frame_ms']:.1f} ms "
+        f"({out['trace_iters']} sphere-trace iterations); synced: {out['frame_split_ms']} ms; "
+        f"{100 * hit:.1f} % of pixels hit")
+    # a field this briefly trained may be hit by every ray (its distances
+    # are small everywhere): the share is recorded, the frame must not be
+    # empty
+    out["hit_share"] = hit
+    check(frame.shape == (HEIGHT, WIDTH, 4) and bool(torch.isfinite(frame).all())
+          and hit > 0.05, "[takikawa] frame: empty or not finite")
+    out["launches"] = kernel_counts()
+    return out
+
+
+def fine_phase(tr, cam, dev) -> dict:
+    """The fine render grid of the trained student: bake_render_grid at
+    factor FINE_FACTOR, then the tile-2^17 live frame with and without it,
+    and a LIVE_SMALL frame through it against the same code on the CPU."""
+    import torch
+
+    from sienerf_torch import metrics
+    from sienerf_torch.ops.optim import inference_params, tree_map
+
+    out = {}
+    eng, state = tr["engine"], tr["state"]
+    params = inference_params(state["opt"], state["params"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fine = eng.bake_render_grid(params, state["occ"], factor=FINE_FACTOR)
+    torch.cuda.synchronize()
+    out["bake_s"] = time.perf_counter() - t
+    out["occupied"] = float(fine.float().mean())
+    out["coarse_occupied"] = float(state["occ"]["bitfield"].float().mean())
+    log(f"[fine] bake_render_grid(factor={FINE_FACTOR}): {tuple(fine.shape)} in "
+        f"{out['bake_s']:.2f} s, {100 * out['occupied']:.3f} % of fine voxels occupied "
+        f"(the training grid {100 * out['coarse_occupied']:.3f} %)")
+    frames = {}
+    for tag, fb in (("coarse", None), ("fine", fine)):
+        stats = {}
+        box = []
+        ms = sync_ms(lambda: box.append(eng.render_frame(
+            params, state["occ"]["bitfield"], WIDTH, HEIGHT, cam, FOCAL, tile=LIVE_BIG_TILE,
+            fine_bitfield=fb, stats=stats)[0]))
+        frames[tag] = box[0]
+        out[tag] = {"ms": ms, "samples": stats["samples"], "rounds": stats["rounds"]}
+        check(bool(torch.isfinite(box[0]).all()), f"[fine] {tag} frame not finite")
+    out["psnr_db"] = float(metrics.psnr(frames["fine"][..., :3], frames["coarse"][..., :3]))
+    log(f"[fine] tile-2^17 {WIDTH}x{HEIGHT} live frame of the trained student: coarse grid "
+        f"{out['coarse']['ms']:.1f} ms, {out['coarse']['samples']} samples, "
+        f"{out['coarse']['rounds']} rounds; fine grid {out['fine']['ms']:.1f} ms, "
+        f"{out['fine']['samples']} samples, {out['fine']['rounds']} rounds; PSNR between the "
+        f"two {out['psnr_db']:.2f} dB")
+    check(out["fine"]["samples"] < out["coarse"]["samples"], "[fine] no sample was culled")
+
+    # the same port code on the CPU, at 160x90, through the same fine grid
+    sw, sh = LIVE_SMALL
+    focal_s = tuple(f * sw / WIDTH for f in FOCAL)
+    card = eng.render_frame(params, state["occ"]["bitfield"], sw, sh, cam, focal_s,
+                            fine_bitfield=fine)[0].cpu()
+    t = time.perf_counter()
+    on_host = on_cpu(eng).render_frame(
+        tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, params),
+        state["occ"]["bitfield"].cpu(), sw, sh, cam, focal_s, fine_bitfield=fine.cpu())[0]
+    out["cpu_s"] = time.perf_counter() - t
+    out["cpu_agree"] = frame_agreement(f"[fine] {sw}x{sh} fine-grid frame card vs CPU", card,
+                                       on_host)
+    log(f"[fine] {sw}x{sh} fine-grid frame card vs CPU ({out['cpu_s']:.1f} s on the CPU): "
+        f"{100 * out['cpu_agree']:.2f} % of pixels agree, PSNR "
+        f"{metrics.psnr(card[..., :3], on_host[..., :3]):.2f} dB")
+    check(out["cpu_agree"] >= LIVE_MIN_AGREE, f"[fine] {sw}x{sh}: only "
+          f"{100 * out['cpu_agree']:.2f} % of pixels agree with the CPU frame")
+    return out
+
+
+def triplane_phase(tr, fox_bitfield, dev) -> dict:
+    """configs/nerf/tensor.json (three 2-D hash grids) at full width from a
+    seeded init: one injected training step card vs CPU on the [train]
+    views, a live and a sweep frame at 320x180 with K1 and K2 held to
+    their plain versions."""
+    import torch
+
+    from sienerf_torch import metrics
+    from sienerf_torch.engines.nerf import NerfEngine
+    from sienerf_torch.engines.nerf_sweep import axis_view, render_frame_sweep, sweep_geometry
+    from sienerf_torch.ops.optim import tree_map
+    from sienerf_torch.ops.shade import shade_volume, shade_volume_plain
+    from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel, sweep_composite_plain
+    from sienerf_torch.utils.camera import look_at_matrix
+    from sienerf_torch.utils.config import load_network_config
+
+    out = {}
+    cfg = load_network_config(ROOT / "configs" / "nerf" / "tensor.json")
+    ds = tr["dataset"]
+    few = dataclasses.replace(ds, images=ds.images[:TRAIN_CHECK_VIEWS],
+                              xforms=ds.xforms[:TRAIN_CHECK_VIEWS],
+                              focal_lengths=ds.focal_lengths[:TRAIN_CHECK_VIEWS],
+                              principal_points=ds.principal_points[:TRAIN_CHECK_VIEWS])
+    ceng = NerfEngine.create(cfg, few, train_batch_size=TRAIN_CHECK_BATCH, device=dev)
+    peng = NerfEngine.create(cfg, few, train_batch_size=TRAIN_CHECK_BATCH, device="cpu")
+    g = ceng.net.grid
+    log(f"[triplane] {len(g)} planes of {g[0].n_levels}x{g[0].n_features_per_level}, "
+        f"2^{g[0].log2_hashmap_size} rows; density MLP input {ceng.net.density_mlp.n_input_dims}")
+    check(ceng.net.pos_otype == "triplane" and len(g) == 3 and g[0].log2_hashmap_size == 17,
+          "[triplane] not at the configuration's full width")
+    state = ceng.init(0)
+    state["occ"] = dict(state["occ"], bitfield=fox_bitfield.clone())
+    ceng._mean_samples = peng._mean_samples = tr["engine"]._mean_samples
+    n_rays, k, iters = ceng._phase_geometry()
+    draws = peng.draw_step(torch.Generator().manual_seed(1), n_rays, int(state["step"]))
+    cpu_state = tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, state)
+    loss_c, grads_c, _ = ceng.loss_and_grads(state, tree_map(lambda x: x.to(dev), draws), k,
+                                             iters)
+    loss_p, grads_p, _ = peng.loss_and_grads(cpu_state, draws, k, iters)
+    rel = abs(float(loss_c) / float(loss_p) - 1)
+    worst = 0.0
+    for name in ("density_mlp", "rgb_mlp", "grid"):
+        for i, (a, b) in enumerate(zip(grads_c[name], grads_p[name])):
+            share = float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            worst = max(worst, share)
+            check(share <= STEP_MAX_SHARE, f"[triplane] {name}[{i}] gradient {share:.3g}")
+    out["card_vs_cpu"] = {"loss_card": float(loss_c), "loss_cpu": float(loss_p),
+                          "loss_rel": rel, "grad_worst_share": worst}
+    log(f"[triplane] card step vs CPU at {n_rays} rays x k {k}: loss {float(loss_c):.8f} vs "
+        f"{float(loss_p):.8f} (relative {rel:.2e}), gradients within {100 * worst:.3f} % "
+        f"of their largest entry")
+    check(rel <= STEP_LOSS_RTOL, f"[triplane] card step loss: relative {rel:.3g}")
+    del peng, cpu_state, grads_c, grads_p
+    # frames at 320x180 from the seeded field on the fox's occupancy
+    params = state["params"]
+    cam = look_at_matrix(EYES[0], [0.5, 0.5, 0.5])
+    sw, sh = CONFIG_SMALL
+    focal_s = tuple(f * sw / WIDTH for f in FOCAL)
+    live = ceng.render_frame(params, state["occ"]["bitfield"], sw, sh, cam, focal_s)[0]
+    check(bool(torch.isfinite(live).all()), "[triplane] live frame not finite")
+    t = time.perf_counter()
+    grid, meta = ceng.bake_features(params, state["occ"], resolution=BAKE_RES)
+    torch.cuda.synchronize()
+    out["bake_s"] = time.perf_counter() - t
+    zero_kernel_counts()
+    img, _ = render_frame_sweep(ceng, params, grid, meta, cam, focal_s, width=sw, height=sh)
+    torch.cuda.synchronize()
+    out["launches"] = kernel_counts()
+    check(out["launches"]["shade"] == 1 and out["launches"]["sweep"] == 1,
+          f"[triplane] launches {out['launches']}")
+    ref, _ = render_frame_sweep(ceng, params, grid, meta, cam, focal_s, width=sw, height=sh,
+                                impl="plain")
+    compare("[triplane] sweep frame vs plain", img, ref, **FRAME_TOL)
+    R, K = meta["resolution"], meta["n_cascades"]
+    geo = sweep_geometry(ceng, cam, focal_s, width=sw, height=sh, device=dev)
+    kw = dict(resolution=R, n_cascades=K, density_act=ceng.net.density_activation,
+              rgb_act=ceng.net.rgb_activation, rgb_mlp=ceng.net.rgb_mlp)
+    vol = shade_volume(grid["rows"], grid["scale"], geo["o"][0], params["rgb_mlp"], **kw)
+    torch.cuda.synchronize()
+    out["k1_max_abs_err"] = compare(
+        "[triplane] K1 vs plain", vol, shade_volume_plain(
+            grid["rows"], grid["scale"], geo["o"][0], params["rgb_mlp"], **kw), **K1_TOL)
+    near = max(0.05, ceng.near_distance)
+    args = (axis_view(vol, geo["axis"]), geo["o_c"], geo["eb"], geo["ec"], near,
+            ceng.render_min_transmittance)
+    kk = dict(resolution=R, n_cascades=K, data_flip=geo["flip"])
+    got = sweep_composite_kernel(*args, **kk)
+    torch.cuda.synchronize()
+    want = sweep_composite_plain(*args, **kk)
+    out["k2_max_abs_err"] = max(compare(f"[triplane] K2 {n} vs plain", a, b, **K2_TOL)
+                                for n, a, b in zip(("C", "opacity", "T", "depth_t"), got,
+                                                   want))
+    out["mean_alpha"] = {"sweep": float(img[..., 3].mean()), "live": float(live[..., 3].mean())}
+    out["sweep_vs_live_psnr_db"] = float(metrics.psnr(img[..., :3], live[..., :3]))
+    log(f"[triplane] bake R={R} {out['bake_s']:.2f} s; {sw}x{sh} frames: sweep mean alpha "
+        f"{out['mean_alpha']['sweep']:.3f}, live {out['mean_alpha']['live']:.3f}; PSNR sweep "
+        f"vs live {out['sweep_vs_live_psnr_db']:.2f} dB")
+    return out
+
+
+def png_phase(tr, net_config: dict, dev, tmp: Path) -> dict:
+    """The [train] phase's training views written as 8-bit RGBA PNGs with a
+    transforms.json, loaded by Session.load_file (the port's PNG decoder),
+    trained PNG_STEPS steps through Session.train, and compare_view(0)."""
+    import concurrent.futures as futures
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from sienerf_torch.io.image_io import load_image
+    from sienerf_torch.io.nerf_dataset import ngp_matrix_to_nerf
+    from sienerf_torch.io.png import read_png, write_png
+    from sienerf_torch.session import Session
+
+    out = {"imports": {}}
+    for mod in ("PIL", "torchvision.io", "cv2"):
+        try:
+            __import__(mod)
+            out["imports"][mod] = True
+        except Exception:  # noqa: BLE001 - only recorded
+            out["imports"][mod] = False
+    seen = ", ".join(f"{k} {'imports' if v else 'absent'}" for k, v in out["imports"].items())
+    log(f"[png] {seen} (the port reads PNG with none of them)")
+    ds = tr["dataset"]
+    n = min(PNG_VIEWS, ds.images.shape[0])
+    root = tmp / "png_scene"
+    root.mkdir()
+    q = np.clip(np.rint(ds.images[:n] * 255.0), 0, 255).astype(np.uint8)
+    scale, offset = 0.33, np.asarray([0.5, 0.5, 0.5], np.float32)
+    frames = []
+    for i in range(n):
+        m = np.eye(4, dtype=np.float32)
+        m[:3] = ngp_matrix_to_nerf(ds.xforms[i], scale, offset)
+        frames.append({"file_path": f"v{i:03d}", "transform_matrix": m.tolist()})
+    t = time.perf_counter()
+    with futures.ThreadPoolExecutor(max_workers=8) as ex:
+        list(ex.map(lambda i: write_png(root / f"v{i:03d}.png", q[i], level=1), range(n)))
+    out["write_s"] = time.perf_counter() - t
+    meta = {"fl_x": float(ds.focal_lengths[0, 0]), "fl_y": float(ds.focal_lengths[0, 1]),
+            "w": WIDTH, "h": HEIGHT, "aabb_scale": 4, "scale": scale,
+            "offset": offset.tolist(), "frames": frames}
+    (root / "transforms.json").write_text(_json.dumps(meta))
+    (tmp / "png_net.json").write_text(_json.dumps(net_config))
+    t = time.perf_counter()
+    with futures.ThreadPoolExecutor(max_workers=16) as ex:
+        list(ex.map(lambda i: read_png(root / f"v{i:03d}.png"), range(n)))
+    out["decode_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sess = Session(device=dev)
+    sess.load_file(root, network=tmp / "png_net.json", train_batch_size=TRAIN_BATCH)
+    out["load_s"] = time.perf_counter() - t
+    got = sess.engine.images
+    want = q.astype(np.float32) / 255.0
+    check(got.shape == want.shape and np.array_equal(got, want),
+          "[png] the loaded images are not the views quantised to 8 bits")
+    check(np.allclose(sess.engine.xforms, ds.xforms[:n], rtol=1e-5, atol=1e-5),
+          "[png] the loaded cameras are not the views'")
+    lin = load_image(root / "v000.png", as_float_linear=True)
+    w0 = want[0].copy()
+    w0[..., :3] = np.where(w0[..., :3] <= 0.04045, w0[..., :3] / 12.92,
+                           ((w0[..., :3] + 0.055) / 1.055) ** 2.4)
+    check(np.array_equal(lin, w0), "[png] load_image(linear) is not sRGB -> linear of the bytes")
+    log(f"[png] {n} views {WIDTH}x{HEIGHT} written as 8-bit RGBA PNG in {out['write_s']:.2f} s "
+        f"({sum(f.stat().st_size for f in root.glob('*.png')) / 1e6:.1f} MB), decoded on 16 "
+        f"threads in {out['decode_s']:.2f} s, loaded by Session.load_file (dataset and "
+        f"engine) in {out['load_s']:.2f} s: images equal the views quantised to 8 bits, view "
+        f"0 through load_image equals sRGB -> linear of its bytes")
+    t = time.perf_counter()
+    loss = sess.train(PNG_STEPS)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t
+    out["loss"] = loss
+    check(math.isfinite(loss), "[png] non-finite loss")
+    t = time.perf_counter()
+    pred, gt, err, psnr = sess.compare_view(0, downscale=PNG_COMPARE_DOWNSCALE,
+                                            tile=LIVE_BIG_TILE)
+    out["compare_s"] = time.perf_counter() - t
+    out["compare_psnr_db"] = psnr
+    shape = (HEIGHT // PNG_COMPARE_DOWNSCALE, WIDTH // PNG_COMPARE_DOWNSCALE, 3)
+    check(pred.shape == gt.shape == err.shape == shape and math.isfinite(psnr),
+          "[png] compare_view")
+    log(f"[png] {PNG_STEPS} steps through Session.train in {out['train_s']:.1f} s (loss "
+        f"{loss:.5f}); compare_view(0, downscale={PNG_COMPARE_DOWNSCALE}) in "
+        f"{out['compare_s']:.1f} s: PSNR {psnr:.2f} dB")
+    del sess
+    torch.cuda.empty_cache()
+    return out
+
+
 def frame_agreement(name, got, want) -> float:
     """The share of pixels of `got` within FRAME_TOL of `want`."""
     import torch
@@ -1623,7 +2144,6 @@ def main() -> int:
         gather_small_plain,
     )
     from sienerf_torch.ops.shade import kernel_occupancy, shade_volume, shade_volume_plain
-    from sienerf_torch.ops.sweep import sweep_composite
     from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel, sweep_composite_plain
     from sienerf_torch.session import Session
     from sienerf_torch.tools import bench_gather
@@ -1643,10 +2163,16 @@ def main() -> int:
     t = time.time()
     reports = cuda_lib.build(cuda_lib.KERNEL_SOURCES, force=True)
     log(f"[build] {', '.join(cuda_lib.KERNEL_SOURCES)} in {time.time() - t:.1f} s")
+    general_ptxas = ""
     for name, rep in reports.items():
+        entry = ""
         for line in rep.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+                if "shade_general_kernel" in entry:
+                    general_ptxas += line.strip().removeprefix("ptxas info    : ") + "; "
     k1_blocks, k1_threads = kernel_occupancy()
     log(f"  shade: {k1_blocks} blocks of {k1_threads} threads "
         f"({k1_blocks * k1_threads // 32} warps) fit an SM")
@@ -1754,7 +2280,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     t_stop = 0.5 + 2.5 * torch.rand((hi, wi), generator=gen, device=dev)
     k2_err = 0.0
-    k2_axis_ms, k2_planar_ms, k2_spread = {}, {}, {}
+    k2_axis_ms, k2_planar_ms, k2_spread, k2_axis_bound = {}, {}, {}, {}
 
     def hold(tag, got, want):
         worst = 0.0
@@ -1792,6 +2318,7 @@ def main() -> int:
                  for _ in range(10)]
         k2_axis_ms[axis] = statistics.median(times)
         k2_spread[axis] = (min(times), max(times))
+        k2_axis_bound[axis] = k2_bound_of(view, g["flip"], *args[1:], R, K)
         # the generic path: the same values in a channel-planar volume
         planar = view.contiguous()
         check(planar.stride(2) != 1, "the channel-planar copy is channel-last")
@@ -1800,9 +2327,11 @@ def main() -> int:
         k2_err = max(k2_err, hold(f"axis {axis} channel-planar", got, want_nearest))
         k2_planar_ms[axis] = cuda_ms(lambda: sweep_composite_kernel(planar, *args[1:], **kw), 10)
         del planar
+        b = k2_axis_bound[axis]
         log(f"[K2] axis {axis}: {k2_axis_ms[axis]:.4f} ms (ten timings "
             f"{k2_spread[axis][0]:.4f}-{k2_spread[axis][1]:.4f}); channel-planar copy "
-            f"{k2_planar_ms[axis]:.4f} ms")
+            f"{k2_planar_ms[axis]:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+            f"{b['bytes'] / 1e9:.4f} GB, {b['samples']} samples, {b['texels']} texels)")
         del v_vol, view, args, got, want, want_nearest
     view = axis_view(vol, g0["axis"])
 
@@ -1840,30 +2369,22 @@ def main() -> int:
         torch.cuda.synchronize()
         return img
 
-    # one tile-2^14 frame, timed: the bake and the sweep frames before it
-    # have warmed the field's matmuls (its phase split is taken at tile 2^17)
-    live_stats = {}
+    # one tile-2^17 frame, timed: the bake and the sweep frames before it
+    # have warmed the field's matmuls.  (A 720p frame at tile 2^14 takes
+    # 22-42 s; it is not run, to keep the script inside its limit.)
+    big_stats = {}
     t = time.perf_counter()
-    live0 = live_frame(cams[0], stats=live_stats)
-    live_ms = [1e3 * (time.perf_counter() - t)]
-    live_med = statistics.median(live_ms)
+    live0 = big = live_frame(cams[0], tile=LIVE_BIG_TILE, stats=big_stats)
+    big_ms = [1e3 * (time.perf_counter() - t)]
+    live_stats, live_med = big_stats, big_ms[0]
     check(live0.shape == (HEIGHT, WIDTH, 4), f"live frame shape {tuple(live0.shape)}")
     check(bool(torch.isfinite(live0).all()), "non-finite live frame")
     check(float(live0[..., 3].mean()) > 0.05 and float(live0[..., :3].std()) > 1e-3,
           "empty or constant live frame")
-    log(f"[live] 1280x720 spp1 tile 2^14: one frame {live_med:.1f} ms, "
-        f"{live_stats['rounds']} rounds, host waited "
-        f"{1e3 * live_stats['host_wait_s']:.1f} ms for the device "
-        f"({100 * 1e3 * live_stats['host_wait_s'] / live_ms[-1]:.1f} % of the frame)")
-    big_ms, big_stats = [], {}
-    big = live_frame(cams[0], tile=LIVE_BIG_TILE)
-    for _ in range(LIVE_BIG_TIMED):
-        big_stats = {}
-        t = time.perf_counter()
-        live_frame(cams[0], tile=LIVE_BIG_TILE, stats=big_stats)
-        big_ms.append(1e3 * (time.perf_counter() - t))
-    log(f"[live] tile 2^17: median of {LIVE_BIG_TIMED} {statistics.median(big_ms):.1f} ms, "
-        f"{big_stats['rounds']} rounds, host waited {1e3 * big_stats['host_wait_s']:.1f} ms")
+    log(f"[live] 1280x720 spp1 tile 2^17: one frame {live_med:.1f} ms, "
+        f"{big_stats['rounds']} rounds, {big_stats['samples']} samples, host waited "
+        f"{1e3 * big_stats['host_wait_s']:.1f} ms for the device "
+        f"({100 * 1e3 * big_stats['host_wait_s'] / live_med:.1f} % of the frame)")
     phases = {"sync_phases": True}
     t = time.perf_counter()
     live_frame(cams[0], tile=LIVE_BIG_TILE, stats=phases)
@@ -1871,7 +2392,14 @@ def main() -> int:
     log(f"[live] where the time goes (one tile-2^17 frame with a device sync after every "
         f"phase, {synced_ms:.1f} ms): "
         + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in phases["phase_s"].items()))
-    compare("live frame tile 2^17 vs tile 2^14", big, live0, rtol=0.0, atol=1e-6)
+    # per-ray results do not depend on the tile (a frame of many refills)
+    sw, sh = LIVE_SMALL_TILE_CHECK
+    focal_t = tuple(f * sw / WIDTH for f in FOCAL)
+    few = sess.render(sw, sh, cams[0], focal_t, renderer="live", tile=LIVE_SMALL_TILE)
+    many = sess.render(sw, sh, cams[0], focal_t, renderer="live", tile=LIVE_BIG_TILE)
+    compare(f"live {sw}x{sh} frame tile {LIVE_SMALL_TILE} vs tile 2^17", few, many, rtol=0.0,
+            atol=1e-6)
+    del few, many
     # the device's busy share of a tile-2^17 frame: the kernels' summed time in
     # a profiler trace over the untraced frame's median time
     from torch.profiler import ProfilerActivity, profile
@@ -1966,13 +2494,9 @@ def main() -> int:
     k1_bytes = (n_live * 32 + (rows.shape[0] - n_live) * 2 + K * Rv ** 3 * 4 * 2
                 + scale.numel() * 4 + 3 * 4 + weight_bytes)
     k1_ops = n_live * K1_FLOPS_PER_VERTEX
-    # K2: the distinct texels (4 bf16 channels) that live samples read, the
-    # schedule, the gnomonic coordinates and the six f32 output maps
-    stats: dict = {}
-    sweep_composite(view.flip(1) if g0["flip"] else view, g0["o_c"], g0["eb"], g0["ec"],
-                    near, min_t, resolution=R, n_cascades=K, stats=stats)
-    k2_samples, k2_texels = int(stats["samples"]), int(stats["texels"])
-    k2_bytes = k2_texels * 4 * 2 + K * R * 5 * 4 + (hi + wi) * 4 + hi * wi * 6 * 4
+    # K2: as k2_bound counts it, on view 0
+    b0 = k2_axis_bound[g0["axis"]]
+    k2_samples, k2_texels, k2_bytes = b0["samples"], b0["texels"], b0["bytes"]
     k2_ops = k2_samples * K2_FLOPS_PER_SAMPLE
 
     def bound(nbytes, ops, peak):
@@ -1990,9 +2514,17 @@ def main() -> int:
         med, k2a = statistics.median(ms), k2_axis_ms[axes[i][0]]
         log(f"[where] view {i} (axis {axes[i][0]}): frame {med:.2f} ms = K1 {k1_ms:.2f} + K2 "
             f"{k2a:.2f} + rest {med - k1_ms - k2a:.2f} ms")
+    # -- 8a. every configs/nerf/*.json through K1 and K2 (K1's general path
+    # for every colour MLP but the fox's), and K1 timed on the fox's rows
+    del vol, view, frames, big, small, small_cpu
+    torch.cuda.empty_cache()
+    t = time.time()
+    cf = configs_phase(sess, rows, scale, n_live, dev, cuda_ms, general_ptxas.strip())
+    cf["phase_s"] = time.time() - t
+    log(f"[configs] phase in {cf['phase_s']:.1f} s: {len(cf['by_config'])} configs, launches "
+        f"{cf['launches']}, K1 max abs err {cf['k1_max_abs_err']:.3g}")
     # -- 8b. the baked gather renderer: the fox's bake, 720p frames, the
     # gathers on a frame's ids, the knobs, the card against the CPU
-    del vol, view, frames, big, small, small_cpu
     torch.cuda.empty_cache()
     t = time.time()
     bk = baked_phase(sess, live0, cams[0], cpu_sess, bake_s, dev)
@@ -2009,6 +2541,24 @@ def main() -> int:
     t = time.time()
     hy = hybrid_phase(sess, tr, dev, cuda_ms)
     log(f"[hybrid] phase in {time.time() - t:.1f} s (host max RSS {host_rss_gib():.1f} GiB)")
+    # -- 10b. the trained student's fine render grid, the triplane NeRF, and
+    # a PNG dataset of the training views through Session.load_file
+    torch.cuda.empty_cache()
+    t = time.time()
+    fn = fine_phase(tr, cams[0], dev)
+    fn["phase_s"] = time.time() - t
+    log(f"[fine] phase in {fn['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t = time.time()
+    tp = triplane_phase(tr, sess.state["occ"]["bitfield"], dev)
+    tp["phase_s"] = time.time() - t
+    log(f"[triplane] phase in {tp['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t = time.time()
+    with tempfile.TemporaryDirectory() as png_dir:
+        pg = png_phase(tr, sess.network_config, dev, Path(png_dir))
+    pg["phase_s"] = time.time() - t
+    log(f"[png] phase in {pg['phase_s']:.1f} s")
     # -- 11. the image, SDF and volume modes and mesh export; none of them
     # launches K1, K2, G1 or G2 (the JAX package runs them in XLA alone)
     for key in ("engine", "state", "dataset"):  # the student's device memory
@@ -2029,6 +2579,12 @@ def main() -> int:
         log(f"[sdf] phase in {modes_s['sdf']:.1f} s (host max RSS {host_rss_gib():.1f} GiB, "
             f"card memory in use {torch.cuda.memory_allocated() / 1e9:.1f} GB)")
         t = time.time()
+        modes["takikawa"] = takikawa_phase(dev, tmp / "scene.obj")
+        modes_s["takikawa"] = time.time() - t
+        log(f"[takikawa] phase in {modes_s['takikawa']:.1f} s (host max RSS "
+            f"{host_rss_gib():.1f} GiB)")
+        torch.cuda.empty_cache()
+        t = time.time()
         modes["volume"] = volume_phase(dev, tmp)
         modes_s["volume"] = time.time() - t
         log(f"[volume] phase in {modes_s['volume']:.1f} s (host max RSS {host_rss_gib():.1f} GiB, "
@@ -2040,10 +2596,11 @@ def main() -> int:
         log(f"[mesh] phase in {modes_s['mesh']:.1f} s (host max RSS {host_rss_gib():.1f} GiB, "
             f"card memory in use {torch.cuda.memory_allocated() / 1e9:.1f} GB)")
         del sdf_sess
-    for name in ("image", "sdf", "volume", "mesh"):
+    for name in ("image", "sdf", "takikawa", "volume", "mesh"):
         check(not any(modes[name]["launches"].values()),
               f"[{name}] launched a kernel of the NeRF paths: {modes[name]['launches']}")
-    log(f"[modes] image, SDF, volume and mesh phases in {sum(modes_s.values()):.1f} s "
+    log(f"[modes] image, SDF, Takikawa SDF, volume and mesh phases in "
+        f"{sum(modes_s.values()):.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in modes_s.items())}); launches of K1, K2, "
         f"G1, G2 on their paths: none")
     log(f"[done] {time.time() - t_all:.1f} s")
@@ -2056,7 +2613,11 @@ def main() -> int:
          "launches_train_path": tr["path_launches"]["shade"],
          "launches_teacher_views": tr["teacher_launches"]["shade"],
          "launches_hybrid_path": hy["launches"]["shade"],
-         "max_abs_err_hybrid": hy["k1_err"]},
+         "max_abs_err_hybrid": hy["k1_err"],
+         "launches_configs_path": cf["launches"]["shade"],
+         "max_abs_err_configs": {k: v["k1_max_abs_err"] for k, v in cf["by_config"].items()},
+         "configs_timed": cf["timed"], "launches_triplane_path": tp["launches"]["shade"],
+         "max_abs_err_triplane": tp["k1_max_abs_err"]},
         {"name": "sweep", "route": "cuda", "source": "sienerf_torch/csrc/sweep.cu",
          "replaces": REPLACES["sweep"], "launches": launches["sweep"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
@@ -2066,7 +2627,14 @@ def main() -> int:
          "launches_teacher_views": tr["teacher_launches"]["sweep"],
          "launches_hybrid_path": hy["launches"]["sweep"],
          "max_abs_err_hybrid": hy["k2_err"], "hybrid_t_stop_ms": hy["k2_ms"],
-         "hybrid_t_stop_plain_ms": hy["k2_plain_ms"]},
+         "hybrid_t_stop_plain_ms": hy["k2_plain_ms"],
+         "bound_ms_by_axis": {a: b["bound_ms"] for a, b in k2_axis_bound.items()},
+         "bound_by_by_axis": {a: b["bound_by"] for a, b in k2_axis_bound.items()},
+         "hybrid_t_stop_bound_ms": hy["k2_bound"]["bound_ms"],
+         "hybrid_t_stop_bound_by": hy["k2_bound"]["bound_by"],
+         "launches_configs_path": cf["launches"]["sweep"],
+         "launches_triplane_path": tp["launches"]["sweep"],
+         "max_abs_err_triplane": tp["k2_max_abs_err"]},
     ]
     for name, tag, r in (("gather_rows", "G1", g1_main), ("gather_small", "G2", g2_main)):
         fr = bk["gathers"][tag]  # at the baked frame's shapes, on its ids
@@ -2113,7 +2681,8 @@ def main() -> int:
                     "baked_hybrid": {k: hy["baked"][k] for k in (
                         "frame_ms", "frame_ms_runs", "split_ms", "load_and_bake_s",
                         "psnr_vs_live_db", "ssim_vs_live", "phase_s")},
-                    "modes": modes, "modes_s": modes_s}))
+                    "modes": modes, "modes_s": modes_s,
+                    "configs": cf, "fine": fn, "triplane": tp, "png": pg}))
     for k in kernels:  # the image, SDF, volume and mesh paths launch none
         k["launches_modes_paths"] = sum(m["launches"][k["name"]] for m in modes.values())
     log(smi)

@@ -97,6 +97,10 @@
 // that prepare X tiles at high occupancy, and MLP warpgroups that consume
 // them from a shared-memory ring.
 //
+// Other colour MLPs (0-3 hidden layers, widths 64 and 128 in configs/nerf/)
+// take shade_general_kernel below: the same walk, the MLP through shared
+// memory, layer by layer.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // (sienerf_torch/ops/cuda_lib.py).  -fmad=false keeps the position and
 // SH arithmetic in the reference's operation order.
@@ -457,6 +461,303 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) shade_kernel(
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The general path: any ReLU colour MLP [SH16; raw16] (32) -> W -> ... -> W
+// -> 3 with 0 or more hidden layers of one width W, padded to a multiple of
+// 16 (the JAX kernel's "ReLU MLP, any depth", shade_pallas.py:176-183).  The
+// 32-64-64-3 fox network keeps the tuned kernel above; the wrapper sends
+// every other shape here.
+//
+// The vertex walk, the ring of kept rows, the direction, SH16 and the
+// owner's epilogue are the tuned kernel's, line for line.  The MLP differs:
+// a layer's outputs are computed 32 at a time (two pairs of n8 tiles, the
+// tuned kernel's 8 mma chains) over a runtime loop of k16 input tiles, and
+// each layer's relu + bf16 output goes to a per-warp shared tile (row pitch
+// W + 8 bf16, an odd count of 16-byte units: ldmatrix and the 32-bit
+// stores are free of bank conflicts) that the next layer reads with
+// ldmatrix.  Two tiles a warp alternate as input and output.  Every output
+// is a chain of mma over its k16 tiles in ascending order, as in the tuned
+// kernel, so on the fox's shapes this path gives the tuned kernel's bits.
+// The weights (fragment order, ops/shade.py::pack_shade_weights) sit in
+// dynamic shared memory: 43 KB for 32-128-128-3.  The launch picks the
+// warps a block (8, 4, 2 or 1) that put the most warps on an SM.
+// Bound: as the tuned kernel's bytes (1.31 GB on the fox's bake); the MLP
+// is 2 * (32 W + (H - 1) W^2 + 3 W) flops a kept vertex (H hidden layers;
+// 41,728 at 32-128-128-3, 1.11 TFLOP on the fox's kept vertices, 1.13 ms
+// at the bf16 tensor peak), so operations bound the widest network.
+// Where it stands (PERF.md has the numbers): a simple kernel, about 6x its
+// bound at 32-128-128-3, where the activation tiles leave room for one
+// block of 8 warps an SM; every layer's A fragments are reloaded from
+// shared memory for each 32 outputs.
+constexpr int GMAX_WARPS = 8;
+constexpr int RING_BYTES = 64 * 32 + 64 * 8 + 64 * 8;  // raw rows, pos, vertex ids
+
+__global__ void __launch_bounds__(32 * GMAX_WARPS, 1) shade_general_kernel(
+    const int16_t* __restrict__ rows, const float* __restrict__ scale,
+    const float* __restrict__ cam, const uint32_t* __restrict__ wpacked, int w_words,
+    int n_hidden, int width, uint2* __restrict__ out, int R, int K, long long n_vert,
+    int dact, int ract) {
+  extern __shared__ __align__(16) uint32_t g_smem[];
+  const int warps = blockDim.x >> 5;
+  // words a row of an activation tile, which also holds the 32-wide X
+  const int pitch = ((width > 32 ? width : 32) + 8) / 2;
+  const int tile_words = TILE * pitch;
+  uint32_t* s_w = g_smem;
+  // per warp: the ring, then two activation tiles
+  const int warp_words = RING_BYTES / 4 + 2 * tile_words;
+  __shared__ __align__(16) float s_scale[MAX_CASCADES * NF];
+  for (int t = threadIdx.x; t < w_words / 4; t += blockDim.x)
+    reinterpret_cast<uint4*>(s_w)[t] = __ldg(reinterpret_cast<const uint4*>(wpacked) + t);
+  for (int t = threadIdx.x; t < K * NF; t += blockDim.x) s_scale[t] = scale[t];
+  __shared__ float s_cam[4];
+  __shared__ uint32_t s_step[3];
+  if (threadIdx.x == 0) {
+    const uint32_t Rv0 = R + 1, plane0 = Rv0 * Rv0;
+    const long long step = (long long)gridDim.x * warps * TILE;
+    const uint32_t step_p = (uint32_t)(step / plane0);
+    s_cam[0] = cam[0];
+    s_cam[1] = cam[1];
+    s_cam[2] = cam[2];
+    s_cam[3] = 1.f / (float)Rv0;
+    s_step[0] = (uint32_t)(step % plane0);
+    s_step[1] = step_p % Rv0;
+    s_step[2] = step_p / Rv0;
+  }
+  __syncthreads();
+  const volatile float* v_cam = s_cam;
+  const volatile uint32_t* v_step = s_step;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  uint32_t* wbase = g_smem + w_words + warp * warp_words;
+  uint4* ring_raw = reinterpret_cast<uint4*>(wbase);
+  uint2* ring_pos = reinterpret_cast<uint2*>(wbase + 64 * 8);
+  long long* ring_v = reinterpret_cast<long long*>(wbase + 64 * 8 + 64 * 2);
+  uint32_t* const tile0 = wbase + RING_BYTES / 4;  // tile c at tile0 + c * tile_words
+  const uint32_t Rv = R + 1, plane = Rv * Rv;
+
+  const int n_tiles = (int)((n_vert + TILE - 1) / TILE);
+  const int n_warps = gridDim.x * warps;
+  int tile = blockIdx.x * warps + warp;
+  const long long v_first = (long long)tile * TILE;
+  uint32_t r0 = (uint32_t)(v_first % plane);
+  uint32_t i0 = (uint32_t)(v_first / plane % Rv), m0 = (uint32_t)(v_first / plane / Rv);
+  int head = 0, count = 0;
+  const int n_pairs = width / 16;  // pairs of n8 output tiles of a hidden layer
+
+  for (;;) {
+    const bool have_tile = tile < n_tiles;
+    if (have_tile) {
+      if (r0 >= plane) {
+        r0 -= plane;
+        ++i0;
+      }
+      while (i0 >= Rv) {
+        i0 -= Rv;
+        ++m0;
+      }
+      const long long v = (long long)tile * TILE + lane;
+      const bool valid = v < n_vert;
+      const uint4* src = reinterpret_cast<const uint4*>(rows + (valid ? v : n_vert - 1) * NF);
+      const uint4 qa = __ldg(src), qb = __ldg(src + 1);
+      const bool culled = !valid || (int16_t)(qa.x & 0xFFFFu) == -32768;
+      if (valid && culled) out[v] = make_uint2(0u, 0u);
+      const unsigned kept = __ballot_sync(0xFFFFFFFFu, !culled);
+      if (kept != 0u) {
+        uint32_t jk = r0 + lane, i = i0, m = m0;
+        while (jk >= plane) {
+          jk -= plane;
+          ++i;
+        }
+        while (i >= Rv) {
+          i -= Rv;
+          ++m;
+        }
+        uint32_t j = plane < (1u << 24) ? (uint32_t)((float)jk * v_cam[3]) : jk / Rv;
+        int k = (int)(jk - j * Rv);
+        if (k < 0) {
+          k += (int)Rv;
+          --j;
+        } else if (k >= (int)Rv) {
+          k -= (int)Rv;
+          ++j;
+        }
+        if (!culled) {
+          const int slot = (head + count + __popc(kept & ((1u << lane) - 1u))) & 63;
+          ring_raw[2 * slot] = qa;
+          ring_raw[2 * slot + 1] = qb;
+          ring_pos[slot] = make_uint2((m << 16) | i, (j << 16) | (uint32_t)k);
+          ring_v[slot] = v;
+        }
+        count += __popc(kept);
+      }
+      tile += n_warps;
+      r0 += v_step[0];
+      i0 += v_step[1];
+      m0 += v_step[2];
+      if (count < 32) continue;
+    } else if (count == 0) {
+      break;
+    }
+
+    __syncwarp();
+    const bool has = lane < count;
+    const int row = head + (has ? lane : 0);
+    const uint4 qa = ring_raw[2 * row], qb = ring_raw[2 * row + 1];
+    const uint2 pos = ring_pos[row];
+    const uint32_t m = pos.x >> 16, i = pos.x & 0xFFFFu, j = pos.y >> 16, k = pos.y & 0xFFFFu;
+    count -= count < 32 ? count : 32;
+    head ^= 32;
+
+    const uint32_t words[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+    const float* sc = s_scale + m * NF;
+    float raw[NF];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      raw[2 * w] = (float)(int16_t)(words[w] & 0xFFFFu) * sc[2 * w];
+      raw[2 * w + 1] = (float)(int16_t)(words[w] >> 16) * sc[2 * w + 1];
+    }
+    const float side = (float)(1u << m);
+    const float lo = 0.5f - 0.5f * side;
+    const float Rf = (float)R;
+    const float dx = ((float)i / Rf * side + lo) - v_cam[0];
+    const float dy = ((float)j / Rf * side + lo) - v_cam[1];
+    const float dz = ((float)k / Rf * side + lo) - v_cam[2];
+    const float n = fmaxf(sqrtf(dx * dx + dy * dy + dz * dz), 1e-6f);
+    const float X = ((dx / n + 1.f) * 0.5f) * 2.f - 1.f;
+    const float Y = ((dy / n + 1.f) * 0.5f) * 2.f - 1.f;
+    const float Z = ((dz / n + 1.f) * 0.5f) * 2.f - 1.f;
+    const float xy = X * Y, xz = X * Z, yz = Y * Z;
+    const float x2 = X * X, y2 = Y * Y, z2 = Z * Z;
+    float sh[16];
+    sh[0] = 0.28209479177387814f;
+    sh[1] = -0.48860251190291987f * Y;
+    sh[2] = 0.48860251190291987f * Z;
+    sh[3] = -0.48860251190291987f * X;
+    sh[4] = 1.0925484305920792f * xy;
+    sh[5] = -1.0925484305920792f * yz;
+    sh[6] = 0.94617469575755997f * z2 - 0.31539156525251999f;
+    sh[7] = -1.0925484305920792f * xz;
+    sh[8] = 0.54627421529603959f * (x2 - y2);
+    sh[9] = 0.59004358992664352f * Y * (-3.f * x2 + y2);
+    sh[10] = 2.8906114426405538f * xy * Z;
+    sh[11] = 0.45704579946446572f * Y * (1.f - 5.f * z2);
+    sh[12] = 0.3731763325901154f * Z * (5.f * z2 - 3.f);
+    sh[13] = 0.45704579946446572f * X * (1.f - 5.f * z2);
+    sh[14] = 1.4453057213202769f * Z * (x2 - y2);
+    sh[15] = 0.59004358992664352f * X * (-x2 + 3.f * y2);
+
+    // X row = bf16([SH16; raw16]) into tile 0
+    __syncwarp();  // the previous batch's reads of both tiles are done
+    uint4* xrow = reinterpret_cast<uint4*>(tile0 + lane * pitch);
+    xrow[0] = make_uint4(pack_bf16(sh[0], sh[1]), pack_bf16(sh[2], sh[3]),
+                         pack_bf16(sh[4], sh[5]), pack_bf16(sh[6], sh[7]));
+    xrow[1] = make_uint4(pack_bf16(sh[8], sh[9]), pack_bf16(sh[10], sh[11]),
+                         pack_bf16(sh[12], sh[13]), pack_bf16(sh[14], sh[15]));
+    xrow[2] = make_uint4(pack_bf16(raw[0], raw[1]), pack_bf16(raw[2], raw[3]),
+                         pack_bf16(raw[4], raw[5]), pack_bf16(raw[6], raw[7]));
+    xrow[3] = make_uint4(pack_bf16(raw[8], raw[9]), pack_bf16(raw[10], raw[11]),
+                         pack_bf16(raw[12], raw[13]), pack_bf16(raw[14], raw[15]));
+    __syncwarp();
+
+    // hidden layers: tile (l & 1) -> tile (l + 1) & 1
+    const uint32_t* wl = s_w;
+    int k_tiles = 2;  // k16 tiles of the layer's input
+    int cur = 0;
+    for (int l = 0; l < n_hidden; ++l) {
+      const uint32_t* hin = tile0 + cur * tile_words;
+      uint32_t* hout = tile0 + (cur ^ 1) * tile_words;
+      for (int p0 = 0; p0 < n_pairs; p0 += 2) {
+        float acc[2][4][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
+        for (int kt = 0; kt < k_tiles; ++kt) {
+          uint32_t a[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            ldmatrix_x4(a[mt], hin + (mt * 16 + (lane & 15)) * pitch + kt * 8 + (lane >> 4) * 4);
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            if (p0 + q < n_pairs) {
+              const uint4 b = *reinterpret_cast<const uint4*>(
+                  wl + ((kt * n_pairs + p0 + q) * 32 + lane) * 4);
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                mma_16816(acc[mt][2 * q], a[mt], b.x, b.y);
+                mma_16816(acc[mt][2 * q + 1], a[mt], b.z, b.w);
+              }
+            }
+          }
+        }
+        // relu + bf16 into the output tile: n8 tile nt of pair p0 + nt / 2
+        // holds columns 8 (2 p0 + nt) .. + 7, lane (g, tig) two of them
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          if (p0 + nt / 2 < n_pairs) {
+            const int col = (2 * p0 + nt) * 4 + tig;  // in words
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              hout[(mt * 16 + g) * pitch + col] = pack_relu_bf16(acc[mt][nt][0], acc[mt][nt][1]);
+              hout[(mt * 16 + g + 8) * pitch + col] =
+                  pack_relu_bf16(acc[mt][nt][2], acc[mt][nt][3]);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      wl += k_tiles * n_pairs * 32 * 4;
+      k_tiles = n_pairs;  // a pair of n8 tiles is one k16 tile of the next layer
+      cur ^= 1;
+    }
+    // the output layer: one n8 tile (3 outputs and 5 zero columns)
+    float oc[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int r4 = 0; r4 < 4; ++r4) oc[mt][r4] = 0.f;
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldmatrix_x4(a[mt], tile0 + cur * tile_words + (mt * 16 + (lane & 15)) * pitch + kt * 8 + (lane >> 4) * 4);
+      const uint2 b = *reinterpret_cast<const uint2*>(wl + (kt * 32 + lane) * 2);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma_16816(oc[mt], a[mt], b.x, b.y);
+    }
+
+    // (r, g) sit in lanes tig == 0, (b, pad) in tig == 1: to the owners
+    // through the tile the output layer did not read
+    float* ys = reinterpret_cast<float*>(tile0 + (cur ^ 1) * tile_words);
+    if (tig < 2) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        *reinterpret_cast<float2*>(ys + (mt * 16 + g) * 4 + 2 * tig) =
+            make_float2(oc[mt][0], oc[mt][1]);
+        *reinterpret_cast<float2*>(ys + (mt * 16 + g + 8) * 4 + 2 * tig) =
+            make_float2(oc[mt][2], oc[mt][3]);
+      }
+    }
+    __syncwarp();
+    const float4 rgb = *reinterpret_cast<const float4*>(ys + lane * 4);
+    if (has) {
+      const float sigma = activation(
+          (float)(int16_t)(ring_raw[2 * row].x & 0xFFFFu) * s_scale[(ring_pos[row].x >> 16) * NF],
+          dact, 15.f);
+      uint2 o;
+      o.x = pack_bf16(activation(rgb.x, ract, 10.f) * sigma,
+                      activation(rgb.y, ract, 10.f) * sigma);
+      o.y = pack_bf16(activation(rgb.z, ract, 10.f) * sigma, sigma);
+      out[ring_v[row]] = o;
+    }
+    __syncwarp();
+  }
+}
+
 }  // namespace
 
 extern "C" int shade_block_threads() { return BLOCK; }
@@ -489,6 +790,68 @@ extern "C" int shade_volume_launch(const void* rows, const void* scale,
       (const int16_t*)rows, (const float*)scale, (const float*)cam,
       (const uint32_t*)wpacked, (uint2*)out, resolution, n_cascades, n_vert,
       density_act, rgb_act);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of a general-path block of `warps` warps.
+static int general_smem_bytes(int w_words, int width, int warps) {
+  const int pitch = ((width > 32 ? width : 32) + 8) / 2;
+  return w_words * 4 + warps * (RING_BYTES + 2 * TILE * pitch * 4);
+}
+
+// The warps a block (8, 4, 2 or 1) that put the most warps on an SM, its
+// dynamic shared memory and the blocks an SM; 0 warps if none fits.
+extern "C" int shade_general_config(int w_words, int width, int* out_smem,
+                                    int* out_blocks) {
+  int best = 0, best_total = 0;
+  for (int warps = GMAX_WARPS; warps >= 1; warps /= 2) {
+    const int smem = general_smem_bytes(w_words, width, warps);
+    if (cudaFuncSetAttribute(shade_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem) != cudaSuccess) {
+      cudaGetLastError();
+      continue;
+    }
+    int blocks = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, shade_general_kernel,
+                                                      32 * warps, smem) != cudaSuccess) {
+      cudaGetLastError();
+      continue;
+    }
+    if (blocks * warps > best_total) {
+      best_total = blocks * warps;
+      best = warps;
+      *out_smem = smem;
+      *out_blocks = blocks;
+    }
+  }
+  return best;
+}
+
+// The general path: wpacked holds w_words 32-bit words (pack_shade_weights
+// for n_hidden hidden layers of padded width `width`, a multiple of 16).
+extern "C" int shade_general_launch(const void* rows, const void* scale, const void* cam,
+                                    const void* wpacked, int w_words, int n_hidden,
+                                    int width, void* out, int resolution, int n_cascades,
+                                    int density_act, int rgb_act, int n_sms, void* stream) {
+  if (n_cascades > MAX_CASCADES || resolution > 65534 || width % 16 != 0 || width < 16 ||
+      w_words % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  int smem = 0, per_sm = 0;
+  const int warps = shade_general_config(w_words, width, &smem, &per_sm);
+  if (warps == 0) return (int)cudaErrorInvalidConfiguration;
+  if (cudaFuncSetAttribute(shade_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess)
+    return (int)cudaGetLastError();
+  const long long Rv = resolution + 1;
+  const long long n_vert = (long long)n_cascades * Rv * Rv * Rv;
+  if ((n_vert + TILE - 1) / TILE > 0x7FFFFFFFLL - 65536) return (int)cudaErrorInvalidValue;
+  const long long want = (n_vert + 32 * warps - 1) / (32 * warps);
+  const long long have = (long long)n_sms * per_sm;
+  const int grid = (int)(want < have ? want : have);
+  shade_general_kernel<<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
+      (const int16_t*)rows, (const float*)scale, (const float*)cam,
+      (const uint32_t*)wpacked, w_words, n_hidden, width, (uint2*)out, resolution,
+      n_cascades, n_vert, density_act, rgb_act);
   return (int)cudaGetLastError();
 }
 

@@ -387,10 +387,6 @@ class GeometryEngine:
             raise ValueError("the sweep hybrid needs a mode='nearest' bake")
         eng = obj.nerf
         dev = grid["rows"].device
-        if impl == "kernel" and dev.type == "cuda" and not _fused_prep_eligible(eng, grid):
-            raise NotImplementedError(
-                "the shade kernel does not take this network config; the plain "
-                "shade on CUDA is not ported yet")
         clock = _PhaseClock(stats, dev, HYBRID_PHASES)
         # the sweep axis from the centre pixel's ray, on the device
         _, d0 = uv_to_ray(torch.tensor([[0.5, 0.5]], device=dev), (width, height),
@@ -449,9 +445,13 @@ class GeometryEngine:
         min_t = eng.render_min_transmittance
         net = eng.net
         if impl == "kernel":
-            vol = shade_volume(grid["rows"], grid["scale"], o0, params["rgb_mlp"],
-                               resolution=R, n_cascades=K,
-                               density_act=net.density_activation, rgb_act=net.rgb_activation)
+            if _fused_prep_eligible(eng, grid):
+                vol = shade_volume(grid["rows"], grid["scale"], o0, params["rgb_mlp"],
+                                   resolution=R, n_cascades=K, density_act=net.density_activation,
+                                   rgb_act=net.rgb_activation, rgb_mlp=net.rgb_mlp)
+            else:  # the JAX package's route: the plain shade, then K2
+                vol = prepare_rgba_volume(eng, params, grid["rows"], grid["scale"], o0, R,
+                                          K).permute(0, 1, 4, 2, 3)
             clock.phase("shade")
             C, op, T, bt = sweep_composite_kernel(
                 axis_view(vol, axis), o_c, eb, ec, near, min_t, t_stop, resolution=R,

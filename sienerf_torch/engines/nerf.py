@@ -27,10 +27,10 @@ plain PyTorch.
 Not ported yet (Slice C2 of ROADMAP.md; each raises NotImplementedError):
 the optional learners (extrinsics, focal, exposure, distortion map with
 render mode `distortion`, extra-dim conditioning, trainable envmap), depth
-supervision, rolling shutter, the near-density regulariser, the legacy
-two-phase path (compact_training=False), and the fine render grid's bake
-(`bake_render_grid`).  A trained envmap in the params is read as the
-frame's background.
+supervision, rolling shutter, the near-density regulariser and the legacy
+two-phase path (compact_training=False).  A trained envmap in the params
+is read as the frame's background.  `bake_render_grid` bakes the fine
+render grid that render_frame's `fine_bitfield` takes.
 """
 
 from __future__ import annotations
@@ -65,6 +65,7 @@ from sienerf_torch.ops.importance import (
 from sienerf_torch.ops.losses import get_loss
 from sienerf_torch.ops.occupancy import (
     OccupancyConfig,
+    bake_fine_bitfield,
     density_to_bitfield,
     draw_density_update,
     init_occupancy_state,
@@ -782,8 +783,9 @@ class NerfEngine:
 
         `tile` is the number of ray slots; per-ray results do not depend on
         it.  `stats`, when given, receives the number of rounds, the
-        seconds the host waited for the device's alive test, and (with
-        stats["sync_phases"] set) the seconds of each phase."""
+        samples the field evaluated, the seconds the host waited for the
+        device's alive test, and (with stats["sync_phases"] set) the seconds
+        of each phase."""
         self._check_mode(render_mode)
         dev = bitfield.device
         clock = _PhaseClock(stats, dev)
@@ -795,8 +797,11 @@ class NerfEngine:
         cam_spec = (width, height, focal_length, camera_matrix, screen_center, off)
         params = self._render_params(params)
         bounds = occupied_bbox(bitfield)
-        # pack once; the per-round march probes the words
+        # pack once; the per-round march probes the words (the fine grid's
+        # with its grid size)
         words = pack_occupancy(bitfield)
+        if fine_bitfield is not None:
+            fine_bitfield = (pack_occupancy(fine_bitfield), int(fine_bitfield.shape[1]))
 
         # Build every pixel's ray once, advance each to its first occupied
         # voxel in one masked march over the whole frame, and keep them in
@@ -821,6 +826,7 @@ class NerfEngine:
             valid=ids0 < n,
             chunks=torch.zeros((A,), dtype=torch.int64, device=dev),
             used=torch.zeros((A,), dtype=torch.int64, device=dev),
+            samples=torch.zeros((), dtype=torch.int64, device=dev),
             cursor=torch.full((), A, dtype=torch.int64, device=dev),
             minT=self._min_t(min_transmittance),
             # per-pixel output rows [r, g, b, opacity, depth]; row n takes
@@ -833,6 +839,8 @@ class NerfEngine:
                                   render_mode, clock)
             if stats is not None:
                 stats["rounds"] += 1
+        if stats is not None:
+            stats["samples"] = int(s["samples"])
         out = s["out"][:n]
         rgb = out[:, :3]
         opacity = out[:, 3]
@@ -891,8 +899,18 @@ class NerfEngine:
         del p["grid"]
         return p
 
-    def bake_render_grid(self, params, occ_state, factor: int = 4):
-        raise NotImplementedError("the fine render grid's bake is not ported yet")
+    def bake_render_grid(self, params, occ_state, factor: int = 4) -> torch.Tensor:
+        """The fine render grid (ops/occupancy.py::bake_fine_bitfield) of
+        the current field at `factor` x the training grid, for
+        render_frame's `fine_bitfield`: frames then skip the samples of
+        near-zero density that the training grid cannot tell apart.
+        -> (C, 128 f, 128 f, 128 f) bool on the engine's device."""
+        def density(pos):
+            return apply_density_activation(density_raw(self.net, params, pos),
+                                            self.net.density_activation)
+
+        return bake_fine_bitfield(density, occ_state["bitfield"],
+                                  float(occ_state["mean_density"]), factor=factor)
 
     def bake_features(self, params: dict, occ_state: dict, resolution: int = 256,
                       mode: str = "nearest", row_bits: int = 16):
@@ -959,6 +977,7 @@ class NerfEngine:
             T=torch.where(was_alive, T_out, s["T"]),
             chunks=s["chunks"] + was_alive.to(torch.int64),
             used=s["used"] + counts,
+            samples=s["samples"] + counts.sum(),
         )
         clock.phase("composite")
         s2 = self._frame_flush_refill(s, s2, n, rays_pre, self._frame_alive, render_mode)

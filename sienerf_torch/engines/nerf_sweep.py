@@ -16,7 +16,10 @@ Per frame:
 
 `impl="kernel"` (the default) runs K1 and K2; their wrappers launch the
 CUDA kernels for CUDA tensors and take the plain versions only for
-tensors on the CPU.  `impl="plain"` runs the plain PyTorch versions on any
+tensors on the CPU.  A network that K1 does not take (the JAX package's
+eligibility test: SH degree other than 4, extra dims, a non-ReLU colour
+MLP) is shaded by the plain shade and composited by K2, the JAX package's
+route for such configs.  `impl="plain"` runs the plain PyTorch versions on any
 device, as the oracle the kernels are checked against.
 """
 
@@ -82,8 +85,11 @@ _KERNEL_ACTS = (NerfActivation.EXPONENTIAL, NerfActivation.RELU, NerfActivation.
 
 
 def _fused_prep_eligible(engine, grid) -> bool:
-    """The shade kernel covers the standard NeRF config: 16-bit int16 bake,
-    SH degree 4, 32->64->64->3 ReLU colour MLP, no extra dims."""
+    """The JAX package's test for its fused shade kernel, and nothing more:
+    16-field int16 rows, no extra dims, SH degree 4, a 32-wide ReLU colour
+    MLP of any depth and width with no output activation, and kernel
+    activations.  Where it fails, the frame takes the plain shade and then
+    K2, as the JAX package takes its XLA prep and then its composite."""
     net = engine.net
     mlp = net.rgb_mlp
     return (
@@ -92,8 +98,6 @@ def _fused_prep_eligible(engine, grid) -> bool:
         and net.n_extra_dims == 0
         and net.sh_degree == 4
         and mlp.n_input_dims == 32
-        and mlp.n_neurons == 64
-        and mlp.n_hidden_layers == 2
         and mlp.activation.lower() == "relu"
         and mlp.output_activation.lower() == "none"
         and net.density_activation in _KERNEL_ACTS
@@ -154,10 +158,6 @@ def render_frame_sweep(engine, params, grid, meta, camera_matrix, focal_length, 
         raise ValueError(f"unknown impl {impl!r}")
     rows, scale = grid["rows"], grid["scale"]
     dev = rows.device
-    if impl == "kernel" and dev.type == "cuda" and not _fused_prep_eligible(engine, grid):
-        raise NotImplementedError(
-            "the shade kernel does not take this network config; the plain "
-            "shade on CUDA is not ported yet")
     R, K = meta["resolution"], meta["n_cascades"]
     g = sweep_geometry(engine, camera_matrix, focal_length, width=width,
                        height=height, margin=margin, hi=hi, wi=wi,
@@ -169,9 +169,13 @@ def render_frame_sweep(engine, params, grid, meta, camera_matrix, focal_length, 
     near = max(NERF_RENDERING_NEAR_DISTANCE, engine.near_distance)
 
     if impl == "kernel":
-        vol = shade_volume(rows, scale, o[0], params["rgb_mlp"], resolution=R,
-                           n_cascades=K, density_act=engine.net.density_activation,
-                           rgb_act=engine.net.rgb_activation)
+        if _fused_prep_eligible(engine, grid):
+            vol = shade_volume(rows, scale, o[0], params["rgb_mlp"], resolution=R,
+                               n_cascades=K, density_act=engine.net.density_activation,
+                               rgb_act=engine.net.rgb_activation, rgb_mlp=engine.net.rgb_mlp)
+        else:  # the JAX package's route: the plain shade, then K2
+            vol = prepare_rgba_volume(engine, params, rows, scale, o[0], R, K) \
+                .permute(0, 1, 4, 2, 3)
         C, op, T, bt = sweep_composite_kernel(
             axis_view(vol, axis), o_c, eb, ec, near, min_t, phase=axis_phase, resolution=R,
             n_cascades=K, interp=interp, data_flip=flip)

@@ -7,7 +7,9 @@ a normal offset (std 0.02) and 1/8 uniform in the unit cube; the targets
 are the mesh's signed distances.  By default a bundle's batches are drawn
 in numpy and their targets computed by the native host query
 (geom/bvh_native.py::sdf_query, on the host's threads), then the steps run
-on the device (MAPE, Ema(ExponentialDecay(Adam)), updated in place).  With
+on the device (MAPE, Ema(ExponentialDecay(Adam)), updated in place).
+A Takikawa network's octree is built from the mesh in `create` (host numpy,
+geom/octree.py) and its tables ride along every evaluation.  With
 host_gt=False the batches are drawn on the device and the targets walk the
 BVH there (geom/sdf_gt.py).  A failed native build or call raises.  A
 bundle's draw and its steps are separate (`draw_bundle`, `train_step`), so
@@ -26,6 +28,8 @@ with sky ambient.  ground_truth=True traces the mesh itself (the BVH)."""
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,6 +40,7 @@ from sienerf_torch.engines.nerf import _PhaseClock
 from sienerf_torch.geom import bvh_native
 from sienerf_torch.geom.bvh import TriangleBVH, build_bvh, bvh_raytrace
 from sienerf_torch.geom.mesh_io import triangle_areas, triangle_normals
+from sienerf_torch.geom.octree import build_triangle_octree, octree_device_tables
 from sienerf_torch.geom.sdf_gt import signed_distance
 from sienerf_torch.models.single_network import (
     SingleNetworkConfig,
@@ -87,6 +92,8 @@ class SdfEngine:
     stop_threshold: float = 1e-4
     shadow_k: float = 8.0
     normals_mode: str = "analytic"  # "analytic" (autograd) | "fd" (6 taps)
+    tak_tables: dict | None = None  # the Takikawa encoding's octree tables
+    octree_stats: dict | None = None  # its build: seconds, depth, nodes, vertices
 
     @staticmethod
     def create(network_config: dict, triangles: np.ndarray, batch_size: int = 1 << 16,
@@ -95,6 +102,25 @@ class SdfEngine:
         net = SingleNetworkConfig.from_network_config(network_config, n_input_dims=3,
                                                       n_output_dims=1)
         bvh = build_bvh(triangles)
+        tak_tables = octree_stats = None
+        if net.takikawa is not None:
+            # the octree at the configured depth, then the network config
+            # again from the depth it reached (the build stops early where
+            # no child cell touches a triangle), as the reference re-reads
+            # the depth after its build (testbed.cu:4148-4156)
+            t0 = time.perf_counter()
+            tree = build_triangle_octree(bvh.triangles, net.takikawa.depth)
+            if tree.depth <= net.takikawa.starting_level:
+                raise ValueError(f"octree depth {tree.depth} <= starting_level "
+                                 f"{net.takikawa.starting_level}")
+            cfg2 = dict(network_config)
+            cfg2["encoding"] = {**cfg2.get("encoding", {}), "n_levels": tree.depth}
+            net = dataclasses.replace(
+                SingleNetworkConfig.from_network_config(cfg2, n_input_dims=3, n_output_dims=1),
+                takikawa_n_vertices=tree.n_vertices)
+            tak_tables = octree_device_tables(tree, dev)
+            octree_stats = {"build_s": time.perf_counter() - t0, "depth": tree.depth,
+                            "nodes": tree.n_nodes, "vertices": tree.n_vertices}
         cdf = np.cumsum(triangle_areas(bvh.triangles))
         cdf = (cdf / cdf[-1]).astype(np.float32)
         return SdfEngine(
@@ -103,7 +129,8 @@ class SdfEngine:
             aabb=BoundingBox.unit(), bvh_host=bvh, bvh_dev=bvh.as_device_arrays(dev),
             tri_normals=torch.from_numpy(triangle_normals(bvh.triangles)).to(dev),
             tri_cdf=torch.from_numpy(cdf).to(dev), cdf_host=cdf, device=dev,
-            host_gt=host_gt, batch_size=batch_size)
+            host_gt=host_gt, batch_size=batch_size, tak_tables=tak_tables,
+            octree_stats=octree_stats)
 
     def init(self, seed: int = 1337) -> dict:
         g = torch.Generator(device=self.device).manual_seed(seed)
@@ -187,7 +214,7 @@ class SdfEngine:
     def loss_and_grads(self, params: dict, pos: torch.Tensor, target: torch.Tensor):
         with torch.enable_grad():
             p_req = tree_map(lambda t: t.detach().requires_grad_(True), params)
-            pred = apply_single_network(self.net, p_req, pos)[:, 0]
+            pred = apply_single_network(self.net, p_req, pos, tables=self.tak_tables)[:, 0]
             loss = get_loss(self.loss_otype)(pred, target).mean()
             grads = torch.autograd.grad(loss, tree_leaves(p_req))
         return loss.detach(), tree_unflatten(params, list(grads))
@@ -222,7 +249,8 @@ class SdfEngine:
         """The field's distance at points (N, 3) -> (N,), forward only, from
         the bf16 render table."""
         packed = pack_render_params(self.net, params)
-        return lambda pos: apply_single_network(self.net, packed, pos)[:, 0]
+        return lambda pos: apply_single_network(self.net, packed, pos,
+                                                tables=self.tak_tables)[:, 0]
 
     @torch.no_grad()
     def sphere_trace(self, sdf_fn, origins, dirs, t_init, t_far, track_shadow: bool = False,
@@ -282,7 +310,7 @@ class SdfEngine:
         for s in range(0, pos.shape[0], _NORMAL_CHUNK):
             with torch.enable_grad():
                 p = pos[s:s + _NORMAL_CHUNK].detach().requires_grad_(True)
-                val = apply_single_network(self.net, params, p)[:, 0]
+                val = apply_single_network(self.net, params, p, tables=self.tak_tables)[:, 0]
                 (g,) = torch.autograd.grad(val.sum(), p)
             out.append(g)
         g = torch.cat(out) if out else pos.new_zeros((0, 3))
@@ -298,7 +326,7 @@ class SdfEngine:
         out = []
         for s in range(0, pos.shape[0], _NORMAL_CHUNK):
             taps = (pos[s:s + _NORMAL_CHUNK, None, :] + offs[None]).reshape(-1, 3)
-            feats = encode_input(self.net, params, taps)
+            feats = encode_input(self.net, params, taps, self.tak_tables)
             d = mlp_apply(self.net.mlp, params["mlp"], feats, compute_dtype=torch.float32)
             d = d[:, 0].reshape(-1, 6)
             out.append((d[:, :3] - d[:, 3:]) / (2.0 * eps))
@@ -433,7 +461,7 @@ class SdfEngine:
             c = cells[ci * chunk:(ci + 1) * chunk]
             pos = (c + draw(ci, tuple(c.shape)).to(dev)) / resolution
             gt = self.ground_truth(pos) < 0
-            pred = apply_single_network(self.net, params, pos)[:, 0] < 0
+            pred = apply_single_network(self.net, params, pos, tables=self.tak_tables)[:, 0] < 0
             inter += int((gt & pred).sum())
             union += int((gt | pred).sum())
         return inter / max(union, 1)

@@ -374,8 +374,13 @@ def export_ingp(
     mode: str = "nerf",
     compress: bool = True,
 ) -> None:
-    """Write a reference-compatible snapshot from framework state."""
+    """Write a reference-compatible snapshot from framework state.  One
+    3-D hash table only: the triplane's three planes have no tcnn layout
+    in the reference's format, and raise."""
     tree = dict(params)
+    if isinstance(tree.get("grid"), (list, tuple)) or isinstance(grid_cfg, tuple):
+        raise NotImplementedError("export_ingp writes one 3-D hash table; a triplane network "
+                                  "has three 2-D planes and no .ingp layout")
     grid = np.asarray(tree["grid"])
     if grid.ndim == 4:  # cell layout -> corner for the tcnn buffer
         import dataclasses

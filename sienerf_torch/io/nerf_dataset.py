@@ -12,8 +12,9 @@ Conventions kept exactly:
   the background in the loss, not here.  Pixels of a dynamic mask carry
   rgb -1 and alpha 0, and training skips them.
 
-Images load through OpenCV (io/image_io.py), imported when the loader
-runs.  EXR images and depth images are not ported yet.
+Images load through io/image_io.py: PNG through the port's own decoder
+(io/png.py), JPG through OpenCV, imported when such an image is read.  EXR
+images and depth images are not ported yet.
 """
 
 from __future__ import annotations

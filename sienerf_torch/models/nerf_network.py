@@ -4,9 +4,11 @@ package's models/nerf_network.py).
 Topology: pos -> hash grid -> density MLP -> 16 geo features (density is
 channel 0); [SH(dir), extra dims, geo features] -> rgb MLP -> 3.  Output
 activations are applied outside the MLPs.  The position encoding is a 3-D
-grid (f32 cell table, or its bf16 / fp8 render packing) or one of the
-analytic encodings; the triplane variant and extra-dim conditioning are
-not ported yet.
+grid (f32 cell table, or its bf16 / fp8 render packing), the triplane
+(configs/nerf/tensor.json: three 2-D hash grids over the coordinate pairs
+(x, y), (y, z), (z, x), their features concatenated; params["grid"] is
+then a list of three f32 cell tables) or one of the analytic encodings.
+Extra-dim conditioning is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,19 +37,23 @@ N_GEO_FEATURES = 16
 
 _GRID_OTYPES = ("hashgrid", "densegrid", "tiledgrid", "grid")
 _ANALYTIC_OTYPES = ("frequency", "oneblob", "trianglewave", "identity")
+# the triplane's coordinate pairs, one 2-D grid each (the reference's
+# configs/nerf/tensor.json composites three 2-D hash grids)
+_TRIPLANE_DIMS = ((0, 1), (1, 2), (2, 0))
 
 
 @dataclass(frozen=True)
 class NerfNetworkConfig:
-    # the 3-D grid config, or None for an analytic position encoding
-    grid: HashGridConfig | None
+    # the 3-D grid config, a tuple of three 2-D grid configs for the
+    # triplane, or None for an analytic position encoding
+    grid: HashGridConfig | tuple | None
     density_mlp: MLPConfig
     rgb_mlp: MLPConfig
     sh_degree: int = 4
     n_extra_dims: int = 0
     rgb_activation: NerfActivation = NerfActivation.LOGISTIC
     density_activation: NerfActivation = NerfActivation.EXPONENTIAL
-    pos_otype: str = "grid"  # "grid" or an analytic otype
+    pos_otype: str = "grid"  # "grid", "triplane" or an analytic otype
     pos_opts: tuple = ()  # analytic-encoding params as sorted (key, value) pairs
 
     @staticmethod
@@ -61,6 +67,15 @@ class NerfNetworkConfig:
             pos_otype = "grid"
             grid = HashGridConfig.from_network_config(enc, n_dims=3, aabb_scale=aabb_scale)
             n_enc = grid.n_output_dims
+        elif ot == "composite":
+            nested = enc.get("nested", [])
+            if not nested or not all(e.get("otype", "").lower() in _GRID_OTYPES
+                                     for e in nested):
+                raise ValueError("NeRF composite pos encoding supports only nested grids")
+            pos_otype = "triplane"
+            grid = tuple(HashGridConfig.from_network_config(e, n_dims=2, aabb_scale=aabb_scale)
+                         for e in nested[:3])
+            n_enc = sum(g.n_output_dims for g in grid)
         elif ot in _ANALYTIC_OTYPES:
             pos_otype = ot
             grid = None
@@ -99,18 +114,21 @@ def init_nerf_network(config: NerfNetworkConfig, generator: torch.Generator,
     }
     if config.pos_otype == "grid":
         params["grid"] = init_hashgrid_params(config.grid, generator, device)
+    elif config.pos_otype == "triplane":
+        params["grid"] = [init_hashgrid_params(g, generator, device) for g in config.grid]
     return params
 
 
 def nerf_l2_mask(params: dict) -> dict:
     """1.0 on the MLP matrices, which take l2 regularisation, 0.0 on the
-    hash table."""
+    hash table (each of the triplane's tables)."""
     mask = {
         "density_mlp": [1.0 for _ in params["density_mlp"]],
         "rgb_mlp": [1.0 for _ in params["rgb_mlp"]],
     }
     if "grid" in params:
-        mask["grid"] = 0.0
+        mask["grid"] = [0.0 for _ in params["grid"]] \
+            if isinstance(params["grid"], (list, tuple)) else 0.0
     return mask
 
 
@@ -118,7 +136,7 @@ def _encode_pos(config: NerfNetworkConfig, params: dict,
                 pos_unit: torch.Tensor) -> torch.Tensor:
     """Encode positions warped to [0,1]^3.  The grid path reads a packed
     render table when the params carry one (fp8, then bf16), else the f32
-    table."""
+    table; the triplane reads its three f32 tables."""
     if config.pos_otype == "grid":
         if "grid_fp8" in params:
             return hashgrid_encode_fp8(config.grid, params["grid_fp8"],
@@ -126,6 +144,10 @@ def _encode_pos(config: NerfNetworkConfig, params: dict,
         if "grid_bf16" in params:
             return hashgrid_encode_bf16(config.grid, params["grid_bf16"], pos_unit)
         return hashgrid_encode(config.grid, params["grid"], pos_unit)
+    if config.pos_otype == "triplane":
+        return torch.cat([hashgrid_encode(g, t, pos_unit[..., list(dims)])
+                          for g, t, dims in zip(config.grid, params["grid"], _TRIPLANE_DIMS)],
+                         dim=-1)
     spec = CompositeSpec(otype=config.pos_otype, params=dict(config.pos_opts))
     return composite_encode(pos_unit, [spec])
 

@@ -16,8 +16,10 @@ import torch
 def sh_encode(dirs_unit_cube: torch.Tensor, degree: int = 4) -> torch.Tensor:
     """(N, 3) directions in [0,1]^3 -> (N, degree^2) SH basis (tcnn's
     polynomial convention, the reference's operation order)."""
-    if degree > 4:
-        raise NotImplementedError("SH degree > 4 is not ported yet")
+    if degree > 5:
+        # the JAX package's sh_encode stops at degree 5 while its
+        # encoding_output_dim reports degree^2 (ROADMAP.md, caveats)
+        raise ValueError(f"SH degree {degree}: the reference basis stops at degree 5")
     d = dirs_unit_cube * 2.0 - 1.0
     x, y, z = d[..., 0], d[..., 1], d[..., 2]
     xy, xz, yz = x * y, x * z, y * z
@@ -43,6 +45,18 @@ def sh_encode(dirs_unit_cube: torch.Tensor, degree: int = 4) -> torch.Tensor:
             0.45704579946446572 * x * (1.0 - 5.0 * z2),
             1.4453057213202769 * z * (x2 - y2),
             0.59004358992664352 * x * (-x2 + 3.0 * y2),
+        ]
+    if degree >= 5:
+        out += [
+            2.5033429417967046 * xy * (x2 - y2),
+            1.7701307697799304 * yz * (-3.0 * x2 + y2),
+            0.94617469575756008 * xy * (7.0 * z2 - 1.0),
+            0.66904654355728921 * yz * (3.0 - 7.0 * z2),
+            -3.1735664074561294 * z2 + 3.7024941420321507 * z2 * z2 + 0.31735664074561293,
+            0.66904654355728921 * xz * (3.0 - 7.0 * z2),
+            0.47308734787878004 * (x2 - y2) * (7.0 * z2 - 1.0),
+            1.7701307697799304 * xz * (-x2 + 3.0 * y2),
+            0.62583573544917614 * (x2 * (x2 - 3.0 * y2) - y2 * (3.0 * x2 - y2)),
         ]
     return torch.stack(out, dim=-1)
 

@@ -57,7 +57,17 @@ def _activation_fn(name: str):
         return torch.sigmoid
     if name == "exponential":
         return torch.exp
-    raise NotImplementedError(f"activation {name} is not ported yet")
+    if name == "tanh":
+        return torch.tanh
+    if name == "squareplus":
+        return lambda x: 0.5 * (x + torch.sqrt(x * x + 4.0))
+    if name == "softplus":
+        return lambda x: torch.logaddexp(x, torch.zeros_like(x))
+    if name in ("leakyrelu", "leaky_relu"):
+        return lambda x: torch.nn.functional.leaky_relu(x, 0.01)
+    if name == "sine":
+        return torch.sin
+    raise ValueError(f"unknown activation {name}")
 
 
 def mlp_layer_dims(config: MLPConfig) -> list[tuple[int, int]]:

@@ -13,11 +13,17 @@ sees.  The random cells and positions are drawn apart from the update
 draws.
 
 The march loops probe a packed form of the grid, 32 cells to a word
-(ops/bits.py: int32 words with the JAX package's uint32 bits)."""
+(ops/bits.py: int32 words with the JAX package's uint32 bits).
+
+`bake_fine_bitfield` bakes the render-only fine grid: the trained field's
+density at the centres of the fine voxels of every occupied coarse cell,
+at `factor` times the training grid's resolution."""
 
 from __future__ import annotations
 
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -61,8 +67,11 @@ def mark_untrained_cells(config: OccupancyConfig, xforms: np.ndarray,
                          focal_lengths: np.ndarray, resolutions: np.ndarray) -> np.ndarray:
     """(C, G, G, G) bool numpy mask of the cells at least one training
     camera sees: the cell centre, inflated by half a diagonal, projects
-    in front of the camera and inside its image (a copy of the JAX
-    package's numpy function)."""
+    in front of the camera and inside its image (the JAX package's numpy
+    test, camera by camera, stopping once every cell is seen; the cameras
+    run in groups on a thread pool, since numpy releases the interpreter
+    lock in its loops, and their masks are ORed, so the result does not
+    depend on the order)."""
     g = config.grid_size
     idx = np.stack(np.meshgrid(np.arange(g), np.arange(g), np.arange(g), indexing="ij"),
                    axis=-1)
@@ -72,27 +81,33 @@ def mark_untrained_cells(config: OccupancyConfig, xforms: np.ndarray,
     t = xforms[:, :3, 3]
     for m in range(config.n_cascades):
         centers = ((idx + 0.5) / g - 0.5) * (2.0 ** m) + 0.5
-        half_diag = 0.5 * math.sqrt(3.0) * (2.0 ** m) / g
+        margin = 0.5 * math.sqrt(3.0) * (2.0 ** m) / g  # half a cell's diagonal
         pts = centers.reshape(-1, 3)
-        visible = np.zeros(pts.shape[0], bool)
-        for ci in range(xforms.shape[0]):
-            rel = pts - t[ci]
-            cam = rel @ R[ci]
+
+        def seen_by(ci, pts=pts, margin=margin):
+            # (pts - t) @ R written out: the same float64 products and sums
+            # as numpy's matmul of these shapes, in a fifth of its time
+            rel, Rc = pts - t[ci], R[ci].astype(np.float64)
+            cam = np.stack([rel[:, 0] * Rc[0, j] + rel[:, 1] * Rc[1, j] + rel[:, 2] * Rc[2, j]
+                            for j in range(3)], axis=-1)
             z = cam[:, 2]
             fx, fy = focal_lengths[ci]
             w, h = resolutions[ci] if resolutions.ndim > 1 else resolutions
-            margin = half_diag
             with np.errstate(divide="ignore", invalid="ignore"):
                 x = cam[:, 0] / np.maximum(z, 1e-9)
                 y = cam[:, 1] / np.maximum(z, 1e-9)
-            vis = (
-                (z + margin > 0.0)
-                & (np.abs(x) * fx <= 0.5 * w + margin * fx / np.maximum(z, 1e-9) + 1)
-                & (np.abs(y) * fy <= 0.5 * h + margin * fy / np.maximum(z, 1e-9) + 1)
-            )
-            visible |= vis
-            if visible.all():
-                break
+            return ((z + margin > 0.0)
+                    & (np.abs(x) * fx <= 0.5 * w + margin * fx / np.maximum(z, 1e-9) + 1)
+                    & (np.abs(y) * fy <= 0.5 * h + margin * fy / np.maximum(z, 1e-9) + 1))
+
+        visible = np.zeros(pts.shape[0], bool)
+        n_threads = min(8, os.cpu_count() or 1)
+        with ThreadPoolExecutor(max_workers=n_threads) as ex:
+            for c0 in range(0, xforms.shape[0], n_threads):
+                for vis in ex.map(seen_by, range(c0, min(c0 + n_threads, xforms.shape[0]))):
+                    visible |= vis
+                if visible.all():
+                    break
         masks.append(visible.reshape(g, g, g))
     return np.stack(masks)
 
@@ -263,3 +278,47 @@ def ray_box_times(o: torch.Tensor, d: torch.Tensor, lo: torch.Tensor, hi: torch.
     ta = (lo[None, :] - o) / safe
     tb = (hi[None, :] - o) / safe
     return torch.minimum(ta, tb).amax(dim=-1), torch.maximum(ta, tb).amin(dim=-1)
+
+
+@torch.no_grad()
+def bake_fine_bitfield(density_fn, coarse_bitfield: torch.Tensor, mean_density: float,
+                       factor: int = 4, dilate: bool = True,
+                       chunk: int = 1 << 20) -> torch.Tensor:
+    """The render-only occupancy grid at `factor` x the training grid:
+    `density_fn(pos (M, 3)) -> (M,)` activated density, evaluated at the
+    centre of every fine voxel of each occupied coarse cell, `chunk` points
+    at a time on the coarse grid's device, and kept above the training
+    grid's threshold min(mean_density, NERF_MIN_OPTICAL_THICKNESS) in
+    density units (the grid stores optical thickness, density *
+    MIN_CONE_STEPSIZE).  `dilate` ORs each voxel with its 26 neighbours (a
+    separable 3^3 max as rolls, whose wrap-around only adds voxels) and
+    keeps the result inside the occupied coarse cells.  -> (C, G*factor,
+    G*factor, G*factor) bool.  The JAX package's bake_fine_bitfield, done
+    on the device."""
+    coarse = coarse_bitfield.bool()
+    dev = coarse.device
+    C, G = coarse.shape[0], coarse.shape[1]
+    Gf = G * factor
+    thresh_raw = float(min(float(mean_density), NERF_MIN_OPTICAL_THICKNESS)) / MIN_CONE_STEPSIZE
+    ax = torch.arange(factor, device=dev)
+    offs = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), dim=-1).reshape(-1, 3)
+    fine = torch.zeros((C, Gf, Gf, Gf), dtype=torch.bool, device=dev)
+    for c in range(C):
+        idx = torch.nonzero(coarse[c])  # (M, 3), row-major as np.argwhere
+        if idx.shape[0] == 0:
+            continue
+        fine_idx = (idx[:, None, :] * factor + offs[None]).reshape(-1, 3)
+        centers = ((fine_idx.float() + 0.5) / Gf - 0.5) * (2.0 ** c) + 0.5
+        occ = torch.cat([density_fn(centers[s:s + chunk]) > thresh_raw
+                         for s in range(0, centers.shape[0], chunk)])
+        fine[c, fine_idx[:, 0], fine_idx[:, 1], fine_idx[:, 2]] = occ
+        del centers, fine_idx
+    if dilate:
+        for c in range(C):
+            f = fine[c]
+            for a in range(3):
+                f = f | torch.roll(f, 1, dims=a) | torch.roll(f, -1, dims=a)
+            up = coarse[c].repeat_interleave(factor, 0).repeat_interleave(factor, 1) \
+                .repeat_interleave(factor, 2)
+            fine[c] = f & up
+    return fine

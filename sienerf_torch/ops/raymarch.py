@@ -91,7 +91,8 @@ def march_rays(config: MarchConfig, bitfield: torch.Tensor, origins: torch.Tenso
 
     bitfield: (C, G, G, G) bool or its packed words; origins, dirs (N, 3),
     dirs unit; t_start, t_far (N,).  `fine` is a render-baked bool grid at
-    a multiple of G (two-level march, span 1 only).  span > 1 tests `span`
+    a multiple of G, or (its pack_occupancy words, its grid size) (two-level
+    march, span 1 only).  span > 1 tests `span`
     consecutive cone-step candidates per iteration with one batched
     occupancy probe, emits the leading occupied run and then makes at most
     one voxel skip: the same samples as the one-candidate loop in `span`
@@ -156,9 +157,12 @@ def _march_rays_scalar(config: MarchConfig, bitfield, origins, dirs, t_start, t_
     grid is empty, one fine cell otherwise."""
     N, K = origins.shape[0], n_samples
     dev = origins.device
-    g_fine = fine.shape[1] if fine is not None else config.grid_size
+    if isinstance(fine, tuple):  # packed once by a frame: (words, grid size)
+        words_fine, g_fine = fine
+    else:
+        g_fine = fine.shape[1] if fine is not None else config.grid_size
+        words_fine = _as_packed(fine) if fine is not None else None
     words = _as_packed(bitfield)
-    words_fine = _as_packed(fine) if fine is not None else None
     iota_K = torch.arange(K, device=dev)[None, :]
 
     t = t_start

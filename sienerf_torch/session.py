@@ -16,6 +16,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from sienerf_torch import metrics
 from sienerf_torch.common import TestbedMode
 from sienerf_torch.convert import train_state_from_jax, train_state_to_jax
 from sienerf_torch.engines.image import ImageEngine
@@ -43,6 +44,7 @@ from sienerf_torch.models.single_network import apply_single_network
 from sienerf_torch.ops.meshing import extract_mesh, optimise_mesh
 from sienerf_torch.ops.optim import inference_params
 from sienerf_torch.ops.samplers import ld_pixel_offset
+from sienerf_torch.ops.tonemap import error_overlay
 from sienerf_torch.utils.config import default_configs_dir, load_network_config
 
 
@@ -383,6 +385,30 @@ class Session:
         return (acc / spp).float()
 
 
+    # --- evaluation overlays ------------------------------------------------
+
+    def compare_view(self, view_index: int = 0, downscale: int = 1, **render_kw):
+        """Render training view `view_index` with the live renderer ->
+        (pred (H, W, 3), gt (H, W, 3), error overlay (H, W, 3), PSNR), the
+        arrays in numpy: the reference's ground-truth overlay and false-colour
+        error oracle (render_frame_epilogue, testbed.cu:4977-5087).
+        `render_kw` goes to NerfEngine.render_frame (tile, stats)."""
+        if self.mode != TestbedMode.NERF or not isinstance(self.engine, NerfEngine) \
+                or getattr(self.engine, "images", None) is None:
+            raise RuntimeError("compare_view needs a NeRF scene with training views")
+        eng = self.engine
+        w, h = eng.resolution[0] // downscale, eng.resolution[1] // downscale
+        rgba, _ = eng.render_frame(
+            self.render_params(), self.state["occ"]["bitfield"], w, h, eng.xforms[view_index],
+            tuple(np.asarray(eng.focals[view_index]) / downscale),
+            screen_center=tuple(np.asarray(eng.principal_points[view_index])), **render_kw)
+        pred = rgba[..., :3]
+        gt = torch.as_tensor(np.ascontiguousarray(
+            eng.images[view_index][::downscale, ::downscale, :3]), device=pred.device)
+        err = error_overlay(pred, gt)
+        return (pred.cpu().numpy(), gt.cpu().numpy(), err.cpu().numpy(),
+                metrics.psnr(pred, gt))
+
     # --- meshes -----------------------------------------------------------
 
     def _mesh_field(self, thresh: float = 2.5):
@@ -399,8 +425,8 @@ class Session:
                 return apply_density_activation(density_raw(net, params, unit),
                                                 net.density_activation)
             return dfn, thresh, self.engine.aabb.min, self.engine.aabb.diag
-        net = self.engine.net
-        return (lambda unit: apply_single_network(net, params, unit)[:, 0], 0.0,
+        net, tables = self.engine.net, self.engine.tak_tables
+        return (lambda unit: apply_single_network(net, params, unit, tables=tables)[:, 0], 0.0,
                 np.zeros(3, np.float32), np.ones(3, np.float32))
 
     def save_mesh(self, path: str | Path, resolution: int = 256, thresh: float = 2.5,
@@ -523,9 +549,14 @@ def _restore_trainer_meta(eng: NerfEngine, meta: dict) -> None:
 def _check_state_fits(eng: NerfEngine, state: dict, path) -> None:
     """Raise when a snapshot's hash table or occupancy grid does not fit the
     engine (a mismatched table would render fog, not fail)."""
-    grid = eng.net.grid
-    table = state["params"].get("grid")
-    if grid is not None and table is not None:
+    grids, tables = eng.net.grid, state["params"].get("grid")
+    if not isinstance(grids, tuple):  # one 3-D grid, or the triplane's three
+        grids, tables = (grids,), (tables,)
+    if len(grids) != len(tables):
+        raise ValueError(f"{path}: {len(tables)} hash tables for {len(grids)} grids")
+    for grid, table in zip(grids, tables):
+        if grid is None or table is None:
+            continue
         want = grid.n_levels * grid.table_size * grid.n_features_per_level \
             * ((1 << grid.n_dims) if grid.layout == "cell" else 1)
         if table.numel() != want or table.shape[0] != grid.n_levels:

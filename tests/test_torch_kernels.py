@@ -22,7 +22,7 @@ from sienerf_torch.ops.gather import (
     gather_small,
     gather_small_plain,
 )
-from sienerf_torch.ops.shade import shade_volume, shade_volume_plain
+from sienerf_torch.ops.shade import _shade_general, shade_volume, shade_volume_plain
 from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel, sweep_composite_plain
 
 FOX = Path(__file__).resolve().parent.parent / "data" / "fox_render.snap"
@@ -697,3 +697,93 @@ def test_card_sdf_and_volume_frames_match_the_cpu(cuda):
     assert float(differ.float().mean()) <= 0.005
     close = torch.isclose(a.cpu(), b, rtol=1e-2, atol=1e-3).all(-1)[~differ]
     assert float(close.float().mean()) >= 0.99
+
+
+# --- K1 for every colour MLP of configs/nerf/, the route K1 does not take,
+# and the Takikawa backward --------------------------------------------------
+
+RGB_SHAPES = {"base_0layer": ((32, 3),), "base_1layer": ((32, 64), (64, 3)),
+              "base": ((32, 64), (64, 64), (64, 3)),
+              "base_3layer": ((32, 64), (64, 64), (64, 64), (64, 3)),
+              "big": ((32, 128), (128, 128), (128, 3))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(RGB_SHAPES))
+@pytest.mark.parametrize("R,K", [(5, 1), (16, 3)])
+def test_shade_kernel_takes_every_repo_colour_mlp(cuda, name, R, K):
+    rng = np.random.default_rng(R + K)
+    Rv = R + 1
+    rows = rng.integers(-32767, 32768, (K * Rv ** 3, 16)).astype(np.int16)
+    rows[rng.random(K * Rv ** 3) < 0.3] = -32768
+    scale = rng.uniform(2e-5, 2e-4, (K, 16)).astype(np.float32)
+    ws = [torch.from_numpy(rng.normal(0, 1 / np.sqrt(a), (a, b)).astype(np.float32)).to(cuda)
+          for a, b in RGB_SHAPES[name]]
+    args = (torch.from_numpy(rows).to(cuda), torch.from_numpy(scale).to(cuda),
+            torch.tensor([0.1, 1.4, -0.6], device=cuda), ws)
+    kw = dict(resolution=R, n_cascades=K, **ACTS)
+    n0 = shade_volume.launches
+    got = shade_volume(*args, **kw)
+    torch.cuda.synchronize()
+    assert shade_volume.launches == n0 + 1
+    want = shade_volume_plain(*args, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-3)
+    if name == "base":  # the general path on the tuned path's shapes: the same bits
+        gen = _shade_general(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(gen.contiguous().view(torch.int16), got.contiguous().view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_the_ineligible_route_launches_k2_not_k1(cuda):
+    """A network K1 does not take (SH degree 3): the sweep frame shades
+    with the plain shade and composites with K2, the JAX package's route."""
+    from sienerf_torch.engines.nerf import NerfEngine
+    from sienerf_torch.engines.nerf_sweep import _fused_prep_eligible, render_frame_sweep
+    from sienerf_torch.io.nerf_dataset import NerfDataset
+    from sienerf_torch.utils.camera import look_at_matrix
+    from sienerf_torch.utils.config import load_network_config
+
+    cfg = load_network_config(Path(__file__).resolve().parent.parent / "configs" / "nerf"
+                              / "base.json")
+    cfg["encoding"] = dict(cfg["encoding"], log2_hashmap_size=14)
+    cfg["dir_encoding"] = {"otype": "Composite", "nested": [
+        {"n_dims_to_encode": 3, "otype": "SphericalHarmonics", "degree": 3},
+        {"otype": "Identity"}]}
+    eng = NerfEngine.create(cfg, NerfDataset.placeholder(1.0), grid_size=32, device=cuda)
+    state = eng.init(0)
+    occ = {"bitfield": torch.ones_like(state["occ"]["bitfield"])}
+    grid, meta = eng.bake_features(state["params"], occ, resolution=32)
+    assert not _fused_prep_eligible(eng, grid)
+    cam = look_at_matrix([0.5, 0.5, -1.6], [0.5, 0.5, 0.5])
+    n0 = (shade_volume.launches, sweep_composite_kernel.launches)
+    rgba, _ = render_frame_sweep(eng, state["params"], grid, meta, cam, (60.0, 60.0),
+                                 width=64, height=48)
+    torch.cuda.synchronize()
+    assert (shade_volume.launches, sweep_composite_kernel.launches) == (n0[0], n0[1] + 1)
+    want, _ = render_frame_sweep(eng, state["params"], grid, meta, cam, (60.0, 60.0),
+                                 width=64, height=48, impl="plain")
+    torch.testing.assert_close(rgba, want, rtol=2e-2, atol=5e-3)
+
+
+@pytest.mark.cuda
+def test_takikawa_backward_is_bit_equal_across_runs(cuda):
+    from sienerf_torch.geom.mesh_io import box_mesh, icosphere
+    from sienerf_torch.geom.octree import build_triangle_octree, octree_device_tables
+    from sienerf_torch.ops.takikawa import TakikawaConfig, takikawa_encode
+
+    tris = np.concatenate([icosphere(3, 0.3) + 0.5, box_mesh((0.7,) * 3, (0.9,) * 3)])
+    tree = build_triangle_octree(tris.astype(np.float32), 8)
+    tables = octree_device_tables(tree, cuda)
+    cfg = TakikawaConfig(depth=8, starting_level=4)
+    grads = []
+    for _ in range(2):
+        g = torch.Generator(device=cuda).manual_seed(0)
+        feats = (torch.rand((tree.n_vertices, 8), generator=g, device=cuda) - 0.5) \
+            .requires_grad_(True)
+        pos = torch.rand((1 << 16, 3), generator=g, device=cuda).requires_grad_(True)
+        out = takikawa_encode(cfg, tables, feats, pos)
+        (out * out).sum().backward()
+        grads.append((feats.grad, pos.grad))
+    assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
+    assert float(grads[0][0].abs().max()) > 0

@@ -347,8 +347,12 @@ def test_unported_parts_raise(what):
         with pytest.raises(NotImplementedError):
             nerf_apply(net, tp, torch.zeros((4, 3)), torch.zeros((4, 3)))
     elif what == "bake_render_grid":
-        with pytest.raises(NotImplementedError):
-            teng.bake_render_grid(tp, {"bitfield": torch.from_numpy(bf)})
+        # ported: held to the reference in tests/test_torch_fine_grid.py
+        fine = teng.bake_render_grid(tp, {"bitfield": torch.from_numpy(bf),
+                                          "mean_density": torch.tensor(0.01)}, factor=2)
+        assert fine.shape == (1, 2 * G, 2 * G, 2 * G) and fine.dtype == torch.bool
+        rgba, _ = frame(fine_bitfield=fine)
+        assert rgba.shape == (8, 8, 4) and bool(torch.isfinite(rgba).all())
     elif what == "unknown_mode":
         with pytest.raises(ValueError):
             frame(render_mode="wireframe")

@@ -13,6 +13,7 @@ instead with the reference's roundings put into the port
 (`assert_mlp_close`, ops/mlp.py::tap_roundings): rtol 1e-4 / atol 1e-5.
 The f32 MLP (finite-difference normals) rtol 1e-5 / atol 1e-6."""
 
+import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -154,6 +155,19 @@ def test_init_l2_mask_and_takikawa():
     jcfg = jsn.SingleNetworkConfig.from_network_config(_cfg(), 2, 3)
     jmask = jsn.l2_mask(jcfg, jsn.init_single_network(jax.random.PRNGKey(0), jcfg))
     assert tsn.l2_mask(tcfg, p) == jmask
-    with pytest.raises(NotImplementedError, match="Takikawa"):
-        tsn.SingleNetworkConfig.from_network_config(
-            {"encoding": {"otype": "Takikawa"}}, 3, 1)
+    # the Takikawa encoding: the config as the reference reads it (its final
+    # depth and vertex count come from the SDF engine's octree), its init,
+    # its l2 mask, and the tables it needs to encode
+    enc = {"otype": "Takikawa", "n_levels": 7, "starting_level": 3}
+    tk = tsn.SingleNetworkConfig.from_network_config({"encoding": enc}, 3, 1)
+    jk = jsn.SingleNetworkConfig.from_network_config({"encoding": enc}, 3, 1)
+    assert vars(tk.takikawa) == vars(jk.takikawa)
+    assert tk.mlp.n_input_dims == jk.mlp.n_input_dims == 32
+    tk = dataclasses.replace(tk, takikawa_n_vertices=50)
+    pk = tsn.init_single_network(tk, torch.Generator().manual_seed(0))
+    assert pk["takikawa"].shape == (50, 8) and float(pk["takikawa"].abs().max()) <= 1e-4
+    jk = dataclasses.replace(jk, takikawa_n_vertices=50)
+    assert tsn.l2_mask(tk, pk) == jsn.l2_mask(jk, jsn.init_single_network(
+        jax.random.PRNGKey(0), jk))
+    with pytest.raises(ValueError, match="tables"):
+        tsn.encode_input(tk, pk, torch.zeros((4, 3)))
