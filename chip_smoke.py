@@ -34,7 +34,7 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   as the mesh's ambient light; 1280x720 hybrid sweep frames (mesh pass with
   shadow rays and BRDF shading, then K1 and K2 with the mesh's per-pixel
   t_stop) timed and split by part, held to their plain versions, to the
-  live hybrid frame and, at 160x90, to the CPU; the BVH tier on an
+  live hybrid frame and, at 80x45, to the CPU; the BVH tier on an
   81,920-triangle sphere; the trained student saved, loaded back as a scene
   object and rendered bit-equal; and two training bundles from one seed,
   bit-equal.
@@ -44,7 +44,7 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   and, with fine="brick", G1 (512-byte bricks), both held bit for bit to
   the plain gathers on the frame's own ids and the frames to the plain
   frames; the frame timed, counted and split, against the live frame, its
-  knobs at 320x180, a trilinear R=128 bake, 160x90 frames against the CPU;
+  knobs at 320x180, a trilinear R=128 bake, 80x45 frames against the CPU;
   and the hybrid frame with the trained student loaded twice as NeRF
   objects, rendered through render_rays_baked.
 
@@ -54,7 +54,7 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   half-float EXR (16 levels x 2^24 rows, 2^18 samples a step; PSNR against
   the image before and after 97 steps, peak memory); `[sdf]` an
   81,920-triangle sphere beside a box written as OBJ (2^19 rows, 2^16
-  samples, host ground truth; IoU at 64^3 before and after 176 steps,
+  samples, host ground truth; IoU at 64^3 before and after 112 steps,
   1280x720 frames with shadows); `[volume]` a 256^3 shell written as
   .nvdb (144 steps, 1280x720 spp 4 frames of the grid and the network,
   their opacities); `[mesh]` save_mesh at 256^3 of the SDF (OBJ) and of
@@ -72,11 +72,27 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   with the colour MLPs of big.json and base_0layer.json, timed beside its
   bound), `[takikawa]` configs/sdf/takikawa.json on the [sdf] mesh (the
   octree at depth 10, steps, IoU, one step against the CPU, a 720p frame),
-  `[fine]` the trained student's fine render grid, the live frame with
-  and without it, and a 160x90 frame through it against the CPU, `[triplane]` configs/nerf/tensor.json (one step against
-  the CPU, frames with K1 and K2 held to plain), and `[png]` the training
-  views written as PNGs, loaded by Session.load_file, trained and scored
-  by compare_view.
+  `[fine]` the trained student's fine render grid, the 640x360 live frame
+  with and without it, and an 80x45 frame through it against the CPU,
+  `[triplane]` configs/nerf/tensor.json (one step against the CPU, frames
+  with K1 and K2 held to plain), and `[png]` ten training views written as
+  PNGs, loaded by Session.load_file, trained and scored by compare_view.
+
+- the trainer's optional learners, `[learners]`, on the trained student
+  at full width: engine A (per-camera se(3) deltas, focal, exposure, a
+  32x32 distortion map, a 128x256 envmap, depth supervision on the
+  teacher's depth, the near-density regulariser, rolling shutter) and
+  engine B (16 latent codes a view, a 48-input colour MLP), each with one
+  injected step held to the CPU (every leaf's gradient), a timed bundle of
+  16 steps at 2^18 samples, an R=256 bake and 720p frames: engine A's
+  sweep frame through K1 and K2 with the envmap behind, bit-equal bundles;
+  engine B's through the plain shade and K2 (K1 never launches), K2 held
+  to plain, its baked frames through G2 with view 0's and view 3's code,
+  a small live frame against the CPU; the five non-pinhole lenses' 720p
+  rays against the CPU, a 720p live frame through the OpenCV lens, a
+  distortion-mode frame, a motion-blurred Session.render against the CPU;
+  and the two-phase trainer's deep bundle, its switch and a step held to
+  the CPU.
 
 It builds every kernel from the sources in the checkout, holds each against
 its plain PyTorch version on the card, checks the sweep frames against the
@@ -166,8 +182,8 @@ HYBRID_EYE, HYBRID_SPHERE_AT, HYBRID_RADIUS = (2.1, 0.5, 0.6), 0.35, 0.12
 PROBE_BOX = ([0.3, 0.2, 0.2], [1.2, 0.9, 0.9])
 HYBRID_SMALL = (320, 180)
 # timed 720p hybrid frames (3.59-3.60 s each on an H100, within 0.1 % of one
-# another): three, after the first and a warm-up
-HYBRID_TIMED = 3
+# another): one, after the first and a warm-up
+HYBRID_TIMED = 1
 # kernel frame vs plain frame: a NeRF fragment whose depth lies within
 # rounding of the mesh's can fall on either side of the depth test
 HYBRID_MIN_AGREE = 0.999
@@ -188,7 +204,7 @@ K1_FLOPS_PER_VERTEX = 2 * (32 * 64 + 64 * 64 + 64 * 3)  # the colour MLP
 # package's own frames sit 17.9-21.4 dB from its DDA frame at R=64 (its
 # 30 dB check is of a one-cascade scene without cone stepping), and the
 # port's equal them (tests/test_torch_baked.py)
-BAKED_TIMED = 5
+BAKED_TIMED = 3
 BAKED_SMALL = (320, 180)
 BAKED_MIN_DB = 20.0  # baked vs live at 720p: the sweep's level
 CULL_TOL = dict(rgb=5e-2, opacity=8e-2, mean_rgb=5e-3)
@@ -197,19 +213,21 @@ TRILINEAR_MIN_DB, TRILINEAR_RES = 35.0, 128
 # the baked hybrid: the student loaded twice, at two centres behind the
 # sphere; tile 2^18 rays (per-ray results do not depend on it)
 HYBRID_NERF_CENTERS = ([0.0, 0.0, 0.0], [-0.15, 0.3, 0.2])
-HYBRID_BAKED_TILE = 1 << 18
+HYBRID_BAKED_TILE, HYBRID_BAKED_TIMED = 1 << 18, 1
+HYBRID_BAKED_SMALL = (160, 90)  # its frame against the live hybrid
+GATHER_REPS = 5  # the gather probe's bursts a shape
 K2_FLOPS_PER_SAMPLE = 30  # affine map, texel select, alpha (one exp), carry
 # Slice F: the image, SDF and volume modes at their configs' full width and
 # mesh export, each input built in code (the reference's image, meshes and
 # .nvdb cloud are not in the repo).  Depths are cut so that the four phases
-# take under 150 s together: image 6 bundles of 16 steps; SDF 10 bundles
+# take under 150 s together: image 6 bundles of 16 steps; SDF 6 bundles
 # (its host ground truth sets the pace, PERF.md section 5); volume 8 bundles;
 # each phase then times one more, phase-synchronised, step or bundle
 IMAGE_RES, IMAGE_BUNDLES = 4096, 6
 IMAGE_MIN_GAIN_DB = 8.0  # PSNR over the untrained network's (tests/test_image_mode.py)
 MODE_CHECK_BATCH = 1 << 14  # the card step held to the CPU step ...
 MODE_STEP_LOSS_RTOL = 1e-4  # ... at the CPU tests' loss tolerance
-SDF_SPHERE_SUBDIV, SDF_BUNDLES, SDF_IOU_RES = 6, 10, 64
+SDF_SPHERE_SUBDIV, SDF_BUNDLES, SDF_IOU_RES = 6, 6, 64
 SDF_MIN_IOU_GAIN = 0.15  # IoU over the untrained network's
 SDF_EYE, SDF_SMALL = (1.3, 0.9, -0.5), (160, 90)
 VOLUME_RES, VOLUME_BUNDLES, VOLUME_SPP = 256, 8, 4
@@ -222,9 +240,30 @@ CONFIG_BAKE_RES, CONFIG_SMALL = 128, (320, 180)
 CONFIG_TIMED = ("big", "base_0layer")
 # the Takikawa SDF (configs/sdf/takikawa.json) on the [sdf] phase's mesh;
 # the fine render grid; the PNG dataset of the [train] views
-TAKIKAWA_BUNDLES = 6
-FINE_FACTOR = 4
-PNG_VIEWS, PNG_STEPS, PNG_COMPARE_DOWNSCALE = 50, 16, 2
+TAKIKAWA_BUNDLES = 4
+FINE_FACTOR, FINE_FRAME = 4, (640, 360)  # the fine grid's factor, its live frames
+PNG_VIEWS, PNG_STEPS, PNG_COMPARE_DOWNSCALE = 10, 16, 2
+# the determinism checks' bundles: 4 steps each (every sum of a step runs
+# in each; 16 only repeat them)
+DETERMINISM_STEPS = 4
+# frames of the hybrid, baked and fine phases held to the CPU (the [live]
+# phase keeps LIVE_SMALL)
+CPU_SMALL = (80, 45)
+# the trainer's learners (Slice C2b) on the [train] student at full width:
+# engine A (cameras, focal, exposure, a 32x32 distortion map, a 128x256
+# envmap, depth, near-density, rolling shutter), engine B (16 latent codes
+# a view: a 48-input colour MLP), the lenses and motion blur, the two-phase
+# path.  Small frames held to the CPU: engine B's live frame and the
+# motion-blurred Session.render (spp 4)
+LEARN_DIST_RES, LEARN_ENVMAP, LEARN_CODES = 32, (128, 256), 16
+LEARN_ROLLING_SHUTTER = (0.0, 0.0, 0.5, 0.1)
+LEARN_DEPTH_LAMBDA, LEARN_NEAR_REG = 0.1, 1e-3
+LEARN_SMALL, MOTION_SMALL, MOTION_SPP = (64, 36), (32, 18), 4
+# lens params: OpenCV k1 k2 p1 p2; fisheye k1..k4; F-theta r0..r4, resx, resy
+LENS_PARAMS = {"opencv": (-0.12, 0.03, 1e-3, -2e-3), "opencv_fisheye": (0.05, -0.01, 2e-3, -1e-3),
+               "ftheta": (0.0, 1.2e-3, 0.0, 0.0, 0.0, 1280.0, 720.0), "latlong": (),
+               "equirectangular": ()}
+RAY_TOL = dict(rtol=1e-5, atol=1e-5)  # card rays vs CPU rays (f32 ulps of trig)
 
 
 class SmokeFailure(Exception):
@@ -613,7 +652,7 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
     (Session.load_file of a geometry scene JSON), a probe grid baked from
     the fox as the mesh's ambient light, the 720p hybrid sweep frame through
     K1 and K2 with the mesh's per-pixel t_stop, held to its plain versions,
-    to the live hybrid frame and (160x90) to the CPU; the BVH tier; the
+    to the live hybrid frame and (80x45) to the CPU; the BVH tier; the
     trained student's snapshot round trip; and the trainer's determinism."""
     import numpy as np
     import torch
@@ -754,9 +793,9 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
         f"{out['sweep_vs_live_psnr_db']:.2f} dB, SSIM {out['sweep_vs_live_ssim']:.4f}")
     check(out["sweep_vs_live_psnr_db"] > QUALITY_MIN_DB, "hybrid sweep vs live PSNR too low")
 
-    # 6. a 160x90 live hybrid frame against the same code on the CPU (the
+    # 6. an 80x45 live hybrid frame against the same code on the CPU (the
     # card's probe grid, copied)
-    cw, ch = LIVE_SMALL
+    cw, ch = CPU_SMALL
     card = frame(cw, ch, renderer="live")[0].cpu()
     cpu_fox = Session(device="cpu")
     cpu_fox.load_snapshot(SNAP)
@@ -839,6 +878,8 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
 
     # 10. one seed, one result: two bundles, and two gradients, from one state
     out["determinism"] = determinism_check(tr["engine"], tr["state"], dev)
+    check(all(v >= 0.0 for v in out["determinism"]["phase_ms_per_step"].values()),
+          "determinism: no phase split")
     return out
 
 
@@ -850,7 +891,7 @@ def baked_phase(sess, live0, cam, cpu_sess, bake_s, dev) -> dict:
     kernel frame against the plain frame, bit for bit; G2 and G1 on the
     first round's own ids, bit-equal and timed; the 720p frame timed,
     counted and split; PSNR / SSIM against the 720p live frame; the knobs
-    at 320x180; a trilinear R=128 bake; and a 160x90 frame against the
+    at 320x180; a trilinear R=128 bake; and an 80x45 frame against the
     same code on the CPU."""
     import torch
 
@@ -1028,9 +1069,9 @@ def baked_phase(sess, live0, cam, cpu_sess, bake_s, dev) -> dict:
     check(out["trilinear_psnr_db"] > TRILINEAR_MIN_DB, "trilinear cull vs no cull")
     del tgrid, nocull, culled
 
-    # 5. the card against the CPU at 160x90, on the card's bake: the
+    # 5. the card against the CPU at 80x45, on the card's bake: the
     # default knobs and the two batched advances
-    cw, ch = LIVE_SMALL
+    cw, ch = CPU_SMALL
     cpu_sess._baked = ({k: v.cpu() for k, v in grid.items()}, dict(meta))
     out["cpu_agree"] = {}
     for name, kw in (("default", {}), ("adv=scout", dict(adv="scout")),
@@ -1083,7 +1124,7 @@ def baked_hybrid(ref_geo, geo_scene: Path, snapshot: Path, dev, frame) -> dict:
     out["launches"] = {"gather_small": gather_small.launches, "gather_rows": gather_rows.launches}
     check(out["launches"]["gather_small"] >= 1, "the baked hybrid launched no G2")
     times = []
-    for _ in range(3):
+    for _ in range(HYBRID_BAKED_TIMED):
         t = time.perf_counter()
         frame(renderer="baked", **kw)
         times.append(1e3 * (time.perf_counter() - t))
@@ -1098,7 +1139,8 @@ def baked_hybrid(ref_geo, geo_scene: Path, snapshot: Path, dev, frame) -> dict:
     out["sweep_routes_baked"] = bool(torch.equal(sweep_two, frame(sw, sh, renderer="baked",
                                                                   **kw)[0]))
     log(f"[baked] hybrid, two student NeRFs behind the sphere: scene loaded and baked in "
-        f"{out['load_and_bake_s']:.1f} s; {WIDTH}x{HEIGHT} median of 3 {out['frame_ms']:.1f} ms "
+        f"{out['load_and_bake_s']:.1f} s; {WIDTH}x{HEIGHT} median of {HYBRID_BAKED_TIMED} "
+        f"{out['frame_ms']:.1f} ms "
         f"(runs "
         f"{[round(x, 1) for x in times]}), launches {out['launches']}; split "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in out["split_ms"].items())
@@ -1109,6 +1151,7 @@ def baked_hybrid(ref_geo, geo_scene: Path, snapshot: Path, dev, frame) -> dict:
     check(out["sweep_routes_baked"], "the two-NeRF sweep frame is not the baked frame")
     check(bool(torch.isfinite(first).all()), "baked hybrid: non-finite values")
     del first, plain, sweep_two
+    sw, sh = HYBRID_BAKED_SMALL
     t = time.perf_counter()
     live, _ = frame(sw, sh, g=geo, renderer="live")
     live_s = time.perf_counter() - t
@@ -1121,10 +1164,12 @@ def baked_hybrid(ref_geo, geo_scene: Path, snapshot: Path, dev, frame) -> dict:
     return out
 
 
-def determinism_check(eng, state, dev) -> dict:
-    """Two training bundles from one state and one seed must give the same
-    loss and the same params and occupancy bit for bit, and two gradient
-    evaluations of one batch the same loss, table and MLP gradients."""
+def determinism_check(eng, state, dev, steps: int = DETERMINISM_STEPS, tag: str = "") -> dict:
+    """Two training bundles of `steps` steps from one state and one seed
+    must give the same loss and the same params and occupancy bit for bit,
+    and two gradient evaluations of one batch the same loss and gradients
+    in every leaf.  The first bundle is phase-synchronised: its split is
+    returned ("phase_ms_per_step")."""
     import torch
 
     from sienerf_torch.ops.optim import tree_leaves
@@ -1132,9 +1177,15 @@ def determinism_check(eng, state, dev) -> dict:
     t = time.perf_counter()
     runs = []
     mean = eng._mean_samples  # a bundle updates it; both start from it
-    for _ in range(2):
-        eng._mean_samples = mean
-        st, loss, _ = eng.train_bundle(state, torch.Generator(device=dev).manual_seed(7))
+    short = dataclasses.replace(eng, grid_interval=steps)
+    split = None
+    for i in range(2):
+        short._mean_samples = mean
+        stats = {"sync_phases": i == 0}
+        st, loss, _ = short.train_bundle(state, torch.Generator(device=dev).manual_seed(7),
+                                         stats)
+        if i == 0:
+            split = phase_split(stats, steps)
         runs.append((float(loss), tree_leaves(st["params"]), st["occ"]["density"]))
     same_bundle = (runs[0][0] == runs[1][0]
                    and all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
@@ -1146,10 +1197,12 @@ def determinism_check(eng, state, dev) -> dict:
     same_grads = bool(torch.equal(g[0][0], g[1][0]) and all(
         torch.equal(a, b) for a, b in zip(tree_leaves(g[0][1]), tree_leaves(g[1][1]))))
     out = {"bundle_loss": [r[0] for r in runs], "bundles_equal": bool(same_bundle),
-           "grads_equal": same_grads, "seconds": time.perf_counter() - t}
-    log(f"[determinism] two bundles from one state and seed: losses {out['bundle_loss']}, "
-        f"params and occupancy bit-equal: {out['bundles_equal']}; two gradients of one batch "
-        f"({n_rays} rays x k {k}) bit-equal: {same_grads} ({out['seconds']:.1f} s)")
+           "grads_equal": same_grads, "seconds": time.perf_counter() - t, "steps": steps,
+           "phase_ms_per_step": split}
+    log(f"[determinism{tag}] two bundles of {steps} steps from one state and seed: losses "
+        f"{out['bundle_loss']}, params and occupancy bit-equal: {out['bundles_equal']}; two "
+        f"gradients of one batch ({n_rays} rays x k {k}) bit-equal: {same_grads} "
+        f"({out['seconds']:.1f} s)")
     check(out["bundles_equal"] and same_grads, "training is not deterministic on the card")
     return out
 
@@ -1231,13 +1284,19 @@ def zero_kernel_counts() -> None:
     gather_rows.launches = gather_small.launches = 0
 
 
-def card_vs_cpu_step(name: str, call, params_cpu: dict, dev) -> dict:
+def card_vs_cpu_step(name: str, call, params_cpu: dict, dev,
+                     loss_rtol: float = MODE_STEP_LOSS_RTOL, mlp_by_name: bool = False,
+                     before_checks=None) -> dict:
     """One injected training step's loss and gradients on the card against
     the same step on the CPU: `call(params, device) -> (loss, grads)` runs
     the mode's loss_and_grads on inputs it moves to `device`.  The loss at
     the CPU tests' rtol 1e-4 and, with the card's bf16 roundings of every
     MLP input put into the CPU step, at STEP_FLIP_RTOL; the gradients at
-    the tolerances of tests/test_torch_hashgrad.py."""
+    the tolerances of tests/test_torch_hashgrad.py.  `loss_rtol` sets the
+    raw loss's tolerance; with `mlp_by_name` the MLP tolerance applies to
+    the leaves under keys ending in "mlp" (a NeRF's learners have 2-D
+    leaves too), else to every 2-D leaf.  `before_checks()`, when given,
+    runs (to log more) after the numbers are printed and before the checks."""
     import torch
 
     from sienerf_torch.ops.mlp import tap_roundings
@@ -1255,22 +1314,33 @@ def card_vs_cpu_step(name: str, call, params_cpu: dict, dev) -> dict:
                 if k == "rounded")
     raw = abs(float(gloss) - float(loss)) / abs(float(loss))
     inj = abs(float(gloss) - float(loss_inj)) / abs(float(loss))
-    worst = 0.0
+    worst, by_leaf, mlp_ok = 0.0, {}, {}
+    named = [(k, i) for k, v in grads.items() for i in range(len(v) if isinstance(v, list)
+                                                             else 1)]
     for leaf, (a, b) in enumerate(zip(tree_leaves(ggrads), tree_leaves(grads))):
         a = a.cpu()
         share = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
         worst = max(worst, share)
-        check(share <= STEP_MAX_SHARE, f"[{name}] gradient leaf {leaf}: {share:.3g} of max")
-        if a.dim() == 2:  # an MLP matrix
-            check(bool(torch.allclose(a, b, **STEP_MLP_TOL)), f"[{name}] MLP gradient {leaf}")
+        by_leaf["%s[%d]" % named[leaf]] = share
+        is_mlp = named[leaf][0].endswith("mlp") if mlp_by_name else a.dim() == 2
+        if is_mlp:  # an MLP matrix
+            mlp_ok[leaf] = bool(torch.allclose(a, b, **STEP_MLP_TOL))
     log(f"[{name}] card step vs CPU: loss {float(gloss):.7g} vs {float(loss):.7g} (rel "
         f"{raw:.3g}; {inj:.3g} with the card's roundings put in, {flips} bf16 roundings "
-        f"differ), gradients within {100 * worst:.3f} % of their largest entry")
-    check(raw <= MODE_STEP_LOSS_RTOL, f"[{name}] card step loss: rel {raw:.3g}")
+        f"differ), gradients within {100 * worst:.3f} % of their largest entry: "
+        + ", ".join(f"{k} {100 * v:.3f} %" for k, v in by_leaf.items()))
+    if before_checks is not None:
+        before_checks()
+    for leaf, (key, share) in enumerate(by_leaf.items()):
+        check(share <= STEP_MAX_SHARE, f"[{name}] gradient leaf {leaf} ({key}): {share:.3g} "
+                                       f"of max")
+        check(mlp_ok.get(leaf, True), f"[{name}] MLP gradient {leaf}")
+    check(raw <= loss_rtol, f"[{name}] card step loss: rel {raw:.3g}")
     check(inj <= STEP_FLIP_RTOL, f"[{name}] card loss vs the CPU's with the card's roundings: "
                                  f"rel {inj:.3g}")
     return {"loss_card": float(gloss), "loss_cpu": float(loss), "loss_rel": raw,
-            "loss_rel_flips_in": inj, "flipped_roundings": flips, "grad_worst_share": worst}
+            "loss_rel_flips_in": inj, "flipped_roundings": flips, "grad_worst_share": worst,
+            "grad_share_by_leaf": by_leaf}
 
 
 def procedural_image(n: int, seed: int = 0):
@@ -1861,7 +1931,7 @@ def takikawa_phase(dev, obj: Path) -> dict:
 def fine_phase(tr, cam, dev) -> dict:
     """The fine render grid of the trained student: bake_render_grid at
     factor FINE_FACTOR, then the tile-2^17 live frame with and without it,
-    and a LIVE_SMALL frame through it against the same code on the CPU."""
+    and a CPU_SMALL frame through it against the same code on the CPU."""
     import torch
 
     from sienerf_torch import metrics
@@ -1881,25 +1951,27 @@ def fine_phase(tr, cam, dev) -> dict:
         f"{out['bake_s']:.2f} s, {100 * out['occupied']:.3f} % of fine voxels occupied "
         f"(the training grid {100 * out['coarse_occupied']:.3f} %)")
     frames = {}
+    fw, fh = FINE_FRAME
+    focal_f = tuple(f * fw / WIDTH for f in FOCAL)
     for tag, fb in (("coarse", None), ("fine", fine)):
         stats = {}
         box = []
         ms = sync_ms(lambda: box.append(eng.render_frame(
-            params, state["occ"]["bitfield"], WIDTH, HEIGHT, cam, FOCAL, tile=LIVE_BIG_TILE,
+            params, state["occ"]["bitfield"], fw, fh, cam, focal_f, tile=LIVE_BIG_TILE,
             fine_bitfield=fb, stats=stats)[0]))
         frames[tag] = box[0]
         out[tag] = {"ms": ms, "samples": stats["samples"], "rounds": stats["rounds"]}
         check(bool(torch.isfinite(box[0]).all()), f"[fine] {tag} frame not finite")
     out["psnr_db"] = float(metrics.psnr(frames["fine"][..., :3], frames["coarse"][..., :3]))
-    log(f"[fine] tile-2^17 {WIDTH}x{HEIGHT} live frame of the trained student: coarse grid "
+    log(f"[fine] tile-2^17 {fw}x{fh} live frame of the trained student: coarse grid "
         f"{out['coarse']['ms']:.1f} ms, {out['coarse']['samples']} samples, "
         f"{out['coarse']['rounds']} rounds; fine grid {out['fine']['ms']:.1f} ms, "
         f"{out['fine']['samples']} samples, {out['fine']['rounds']} rounds; PSNR between the "
         f"two {out['psnr_db']:.2f} dB")
     check(out["fine"]["samples"] < out["coarse"]["samples"], "[fine] no sample was culled")
 
-    # the same port code on the CPU, at 160x90, through the same fine grid
-    sw, sh = LIVE_SMALL
+    # the same port code on the CPU, at CPU_SMALL, through the same fine grid
+    sw, sh = CPU_SMALL
     focal_s = tuple(f * sw / WIDTH for f in FOCAL)
     card = eng.render_frame(params, state["occ"]["bitfield"], sw, sh, cam, focal_s,
                             fine_bitfield=fine)[0].cpu()
@@ -2108,6 +2180,401 @@ def png_phase(tr, net_config: dict, dev, tmp: Path) -> dict:
     return out
 
 
+# -- the trainer's learners (Slice C2b) ----------------------------------------
+
+
+def _view_subset(eng, state, n: int, device):
+    """`eng` and `state` cut to the first n training views, on `device`
+    (the card-vs-CPU steps: the engines' set-up is per view)."""
+    import torch
+
+    from sienerf_torch.ops.optim import tree_map
+
+    per_view = ("images", "xforms", "focals", "pp", "xforms_end", "depths")
+    dev = torch.device(device)
+    data = {k: (v[:n] if k in per_view else v).to(dev) for k, v in eng.data.items()}
+    e = dataclasses.replace(eng, images=eng.images[:n], xforms=eng.xforms[:n],
+                            focals=eng.focals[:n], principal_points=eng.principal_points[:n],
+                            data=data, device=dev,
+                            train_n_rays=max(256, TRAIN_CHECK_BATCH // eng.train_k))
+    for attr in ("_mean_samples", "_phase"):
+        if hasattr(eng, attr):
+            setattr(e, attr, getattr(eng, attr))
+    params = {k: (v[:n] if k in ("cam", "exposure", "extra_dims") else v)
+              for k, v in state["params"].items()}
+    st = {"params": params, "occ": state["occ"], "step": state["step"]}
+    if "emap" in state:
+        st["emap"] = dict(state["emap"], error=state["emap"]["error"][:n])
+    return e, tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x, st)
+
+
+def learner_step_check(name: str, eng, state, dev) -> dict:
+    """One injected step of `eng` on the card against the CPU, on the first
+    TRAIN_CHECK_VIEWS views at TRAIN_CHECK_BATCH samples: the loss at
+    STEP_LOSS_RTOL (STEP_FLIP_RTOL with the card's roundings put in), every
+    leaf's gradient (the learners' too) within STEP_MAX_SHARE, the MLPs at
+    STEP_MLP_TOL."""
+    import torch
+
+    from sienerf_torch.ops.optim import tree_map
+
+    t = time.perf_counter()
+    ceng, cst = _view_subset(eng, state, TRAIN_CHECK_VIEWS, dev)
+    peng, pst = _view_subset(eng, state, TRAIN_CHECK_VIEWS, "cpu")
+    n_rays, k, iters = ceng._phase_geometry()
+    draws = peng.draw_step(torch.Generator().manual_seed(1), n_rays, int(pst["step"]))
+    d_card = tree_map(lambda x: x.to(dev), draws)
+    rays = {}  # each device's first (samples a ray, per-ray loss)
+
+    def call(params, device):
+        e, st, d = (ceng, cst, d_card) if device.type == "cuda" else (peng, pst, draws)
+        loss, grads, aux = e.loss_and_grads(dict(st, params=params), d, k, iters)
+        rays.setdefault(device.type, (aux[0].cpu(), aux[1].detach().cpu().double()))
+        return loss, grads
+
+    agree = {}
+
+    def report():
+        same = float((rays["cuda"][0] == rays["cpu"][0]).float().mean())
+        d_ray = (rays["cuda"][1] - rays["cpu"][1]).abs()
+        agree.update(same_samples=same, rays_apart=int((d_ray > 1e-6).sum()))
+        log(f"[{name}] at {n_rays} rays x k {k} on {TRAIN_CHECK_VIEWS} views "
+            f"({time.perf_counter() - t:.1f} s): {100 * same:.2f} % of rays with the same "
+            f"samples, {agree['rays_apart']} rays' losses more than 1e-6 apart (largest "
+            f"{float(d_ray.max()):.3g})")
+
+    out = card_vs_cpu_step(name, call, pst["params"], dev, loss_rtol=STEP_LOSS_RTOL,
+                           mlp_by_name=True, before_checks=report)
+    out.update(agree, n_rays=n_rays, k=k, seconds=time.perf_counter() - t)
+    return out
+
+
+def _timed_bundle(name: str, eng, state, dev) -> tuple:
+    """One unsynchronised bundle from `state` -> (state, numbers)."""
+    import torch
+
+    stats = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    st, loss, cnt = eng.train_bundle(state, torch.Generator(device=dev).manual_seed(0), stats)
+    loss, cnt = float(loss), float(cnt)
+    ms = 1e3 * (time.perf_counter() - t) / eng.grid_interval
+    out = {"ms_per_step": ms, "loss": loss, "samples_per_ray": cnt, "n_rays": stats["n_rays"],
+           "k": stats["k"], "steps": eng.grid_interval}
+    log(f"[{name}] one bundle of {eng.grid_interval} steps at {stats['n_rays']} rays x k "
+        f"{stats['k']}: {ms:.1f} ms a step, loss {loss:.5f}, {cnt:.1f} samples a ray")
+    check(math.isfinite(loss), f"[{name}] non-finite loss")
+    return st, out
+
+
+def _teacher_depths(sess, xforms, dev):
+    """The fox teacher's sweep depth at each training view, as ray distance
+    along the unit direction (the trainer's depth), 0 where alpha < 0.5."""
+    import numpy as np
+    import torch
+
+    from sienerf_torch.engines.nerf_sweep import render_frame_sweep
+
+    grid, meta = sess.bake(resolution=BAKE_RES)
+    eng, params = sess.engine, sess.render_params()
+    x = (torch.arange(WIDTH, device=dev) + 0.5) / WIDTH - 0.5
+    y = (torch.arange(HEIGHT, device=dev) + 0.5) / HEIGHT - 0.5
+    yy, xx = torch.meshgrid(y * HEIGHT / FOCAL[1], x * WIDTH / FOCAL[0], indexing="ij")
+    dnorm = torch.sqrt(xx * xx + yy * yy + 1.0)
+    out = np.empty((len(xforms), HEIGHT, WIDTH), np.float32)
+    for i, xf in enumerate(xforms):
+        rgba, depth = render_frame_sweep(eng, params, grid, meta, xf, FOCAL, width=WIDTH,
+                                         height=HEIGHT)
+        out[i] = torch.where(rgba[..., 3] >= 0.5, depth * dnorm, 0.0).cpu().numpy()
+    sess._baked = None
+    return out
+
+
+def learners_phase(sess, tr, dev, cuda_ms) -> dict:
+    """The trainer's optional learners at the [train] student's full width
+    (its engine's views, device copies and visibility mask, through
+    dataclasses.replace): engine A (every camera and background learner at
+    once), engine B (LEARN_CODES latent codes a view), the lenses and
+    motion blur, the two-phase path.  Each engine's injected step against
+    the CPU, its timed bundle, its frames through the kernels (counted
+    from 0) against plain."""
+    import numpy as np
+    import torch
+
+    from sienerf_torch import metrics
+    from sienerf_torch.common import LensMode
+    from sienerf_torch.engines.nerf_sweep import (
+        axis_view,
+        prepare_rgba_volume,
+        sweep_geometry,
+    )
+    from sienerf_torch.models.nerf_network import NerfNetworkConfig
+    from sienerf_torch.ops.optim import inference_params, optim_init, tree_map
+    from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel, sweep_composite_plain
+    from sienerf_torch.session import Session
+    from sienerf_torch.utils.camera import Lens, look_at_matrix, pixel_grid_uv, uv_to_ray
+
+    out, launches = {}, {}
+    eng0, state0, ds = tr["engine"], tr["state"], tr["dataset"]
+    n = ds.n_images
+    rng = np.random.default_rng(10)
+    cam = look_at_matrix(EYES[0], [0.5, 0.5, 0.5])
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    def student(eng, state):
+        s = Session(device=dev)
+        s.engine, s.state, s.network_config = eng, state, sess.network_config
+        return s
+
+    def counted(fn):
+        zero_kernel_counts()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, kernel_counts()
+
+    def fresh_state(eng, params):
+        return {"params": params, "opt": optim_init(params, eng.opt), "occ": state0["occ"],
+                "step": state0["step"], "emap": state0["emap"]}
+
+    part_s = {}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        part_s[name] = time.perf_counter() - t_part
+        log(f"[learners] part ({name}) in {part_s[name]:.1f} s")
+        t_part = time.perf_counter()
+
+    # -- (a) engine A: cameras, focal, exposure, distortion map, envmap,
+    # depth, near-density, rolling shutter, all at once
+    t = time.perf_counter()
+    depths = _teacher_depths(sess, ds.xforms, dev)
+    ang = math.radians(0.4)
+    rot = np.asarray([[math.cos(ang), 0, math.sin(ang)], [0, 1, 0],
+                      [-math.sin(ang), 0, math.cos(ang)]], np.float32)
+    xf_end = ds.xforms.copy()
+    xf_end[:, :, :3] = np.einsum("ij,njk->nik", rot, ds.xforms[:, :, :3])
+    xf_end[:, :, 3] += np.asarray([0.004, 0.0, -0.002], np.float32)
+    engA = dataclasses.replace(
+        eng0, optimize_extrinsics=True, optimize_focal=True, optimize_exposure=True,
+        optimize_distortion=True, distortion_resolution=LEARN_DIST_RES, train_envmap=True,
+        envmap_resolution=LEARN_ENVMAP, depth_supervision_lambda=LEARN_DEPTH_LAMBDA,
+        near_density_reg=LEARN_NEAR_REG,
+        rolling_shutter=np.asarray(LEARN_ROLLING_SHUTTER, np.float32),
+        data=dict(eng0.data, xforms_end=put(xf_end), depths=put(depths)))
+    engA._mean_samples = eng0._mean_samples
+    del depths
+    env = np.concatenate([rng.uniform(0.0, 0.3, LEARN_ENVMAP + (3,)),
+                          np.ones(LEARN_ENVMAP + (1,))], axis=-1)
+    pA = dict(state0["params"], cam=put(rng.normal(0, 1e-3, (n, 6))),
+              focal=put(rng.normal(0, 1e-2, 2)), exposure=put(rng.normal(0, 0.05, (n, 1))),
+              distortion=put(rng.normal(0, 1e-3, (LEARN_DIST_RES, LEARN_DIST_RES, 2))),
+              envmap=put(env))
+    stateA = fresh_state(engA, pA)
+    log(f"[learners] engine A: {n} views, cameras, focal, exposure, a {LEARN_DIST_RES}^2 "
+        f"distortion map, a {LEARN_ENVMAP[0]}x{LEARN_ENVMAP[1]} envmap, depth (the teacher's, "
+        f"{float((engA.data['depths'] > 0).float().mean()):.3f} of pixels), near-density "
+        f"{LEARN_NEAR_REG}, rolling shutter {LEARN_ROLLING_SHUTTER}; set up in "
+        f"{time.perf_counter() - t:.1f} s")
+    out["A_step"] = learner_step_check("learners A", engA, stateA, dev)
+    stateA1, out["A_bundle"] = _timed_bundle("learners A", engA, stateA, dev)
+    out["A_determinism"] = determinism_check(engA, stateA, dev, tag=" A")
+    split, plain = out["A_determinism"]["phase_ms_per_step"], tr.get("phase_ms_per_step") or {}
+    log("[learners] engine A's step split (synchronised) beside the plain student's: "
+        + ", ".join(f"{k} {v:.2f} / {plain.get(k, float('nan')):.2f} ms" for k, v in split.items()))
+    check(out["A_determinism"]["bundles_equal"] and out["A_determinism"]["grads_equal"],
+          "[learners] engine A is not deterministic on the card")
+    for leaf in ("cam", "focal", "exposure", "distortion", "envmap"):
+        check(not torch.equal(stateA1["params"][leaf], pA[leaf]), f"[learners] {leaf} stayed")
+    sA = student(engA, stateA1)
+    t = time.perf_counter()
+    sA.bake(resolution=BAKE_RES)
+    torch.cuda.synchronize()
+    out["A_bake_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    frame, launches["A_sweep"] = counted(
+        lambda: sA.render(WIDTH, HEIGHT, cam, FOCAL, renderer="sweep"))
+    out["A_sweep_ms"] = 1e3 * (time.perf_counter() - t)
+    check(launches["A_sweep"]["shade"] == 1 and launches["A_sweep"]["sweep"] == 1,
+          f"[learners] engine A's sweep frame: launches {launches['A_sweep']}")
+    plain_frame = sA.render(WIDTH, HEIGHT, cam, FOCAL, renderer="sweep", impl="plain")
+    out["A_frame_max_abs_err"] = compare("[learners] engine A sweep frame (envmap behind) vs "
+                                         "plain", frame, plain_frame, **FRAME_TOL)
+    check(float(frame[..., 3].mean()) > 0.05, "[learners] engine A: empty frame")
+    del frame, plain_frame, sA
+    part("a")
+
+    # -- (b) engine B: LEARN_CODES learnable latent codes a view
+    netB = NerfNetworkConfig.from_network_config(sess.network_config, aabb_scale=ds.aabb_scale,
+                                                 n_extra_dims=LEARN_CODES)
+    check(netB.rgb_mlp.n_input_dims == 16 + LEARN_CODES + 16, "[learners] colour MLP width")
+    engB = dataclasses.replace(eng0, net=netB, optimize_extra_dims=True)
+    engB._mean_samples = eng0._mean_samples
+    w0 = state0["params"]["rgb_mlp"][0]
+    pB = dict(state0["params"], extra_dims=put(rng.uniform(-1, 1, (n, LEARN_CODES))),
+              rgb_mlp=[torch.cat([w0[:16], put(rng.normal(0, 0.1, (LEARN_CODES, w0.shape[1]))),
+                                  w0[16:]])] + list(state0["params"]["rgb_mlp"][1:]))
+    stateB = fresh_state(engB, pB)
+    out["B_step"] = learner_step_check("learners B", engB, stateB, dev)
+    stateB1, out["B_bundle"] = _timed_bundle("learners B", engB, stateB, dev)
+    check(not torch.equal(stateB1["params"]["extra_dims"], pB["extra_dims"]),
+          "[learners] the latent codes stayed")
+    sB = student(engB, stateB1)
+    t = time.perf_counter()
+    grid, meta = sB.bake(resolution=BAKE_RES)
+    torch.cuda.synchronize()
+    out["B_bake_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    frame, launches["B_sweep"] = counted(
+        lambda: sB.render(WIDTH, HEIGHT, cam, FOCAL, renderer="sweep"))
+    out["B_sweep_ms"] = 1e3 * (time.perf_counter() - t)
+    check(launches["B_sweep"]["shade"] == 0 and launches["B_sweep"]["sweep"] == 1,
+          f"[learners] engine B's sweep frame: the plain shade and K2 only, launches "
+          f"{launches['B_sweep']}")
+    plain_frame = sB.render(WIDTH, HEIGHT, cam, FOCAL, renderer="sweep", impl="plain")
+    out["B_frame_max_abs_err"] = compare("[learners] engine B sweep frame vs plain", frame,
+                                         plain_frame, **FRAME_TOL)
+    check(float(frame[..., 3].mean()) > 0.05, "[learners] engine B: empty frame")
+    # K2 on the plain shade's volume against its plain version
+    params = sB.render_params()
+    g = sweep_geometry(engB, cam, FOCAL, width=WIDTH, height=HEIGHT, device=dev)
+    R, K = meta["resolution"], meta["n_cascades"]
+    vol = prepare_rgba_volume(engB, params, grid["rows"], grid["scale"], g["o"][0], R,
+                              K).permute(0, 1, 4, 2, 3)
+    near, min_t = max(0.05, engB.near_distance), engB.render_min_transmittance
+    args = (axis_view(vol, g["axis"]), g["o_c"], g["eb"], g["ec"], near, min_t)
+    kw = dict(resolution=R, n_cascades=K, data_flip=g["flip"])
+    got = sweep_composite_kernel(*args, **kw)
+    want = sweep_composite_plain(*args, **kw)
+    out["B_k2_max_abs_err"] = max(compare(f"[learners] K2 {nm} on engine B's volume", a,
+                                          b.contiguous(), **K2_TOL)
+                                  for nm, a, b in zip(("C", "opacity", "T", "depth_t"), got, want))
+    out["B_k2_ms"] = cuda_ms(lambda: sweep_composite_kernel(*args, **kw), 10)
+    del vol, args, got, want, frame, plain_frame
+    # the baked frames through G2, view 0's code and then view 3's
+    frames = {}
+    for view in (0, 3):
+        sB.rendering_extra_dims_from_training_view = view
+        t = time.perf_counter()
+        frames[view], launches[f"B_baked_view{view}"] = counted(
+            lambda: sB.render(WIDTH, HEIGHT, cam, FOCAL, renderer="baked"))
+        out[f"B_baked_view{view}_ms"] = 1e3 * (time.perf_counter() - t)
+        n_g2 = launches[f"B_baked_view{view}"]["gather_small"]
+        check(n_g2 > 0 and launches[f"B_baked_view{view}"]["shade"] == 0,
+              f"[learners] engine B's baked frame: launches {launches[f'B_baked_view{view}']}")
+        log(f"[learners] engine B baked frame {WIDTH}x{HEIGHT}, view {view}'s code: "
+            f"{out[f'B_baked_view{view}_ms']:.1f} ms, {n_g2} G2 launches")
+    # the frame of another view's code against the plain gathers
+    plain_frame = sB.render(WIDTH, HEIGHT, cam, FOCAL, renderer="baked", impl="plain")
+    check(torch.equal(frames[3], plain_frame),
+          "[learners] engine B's baked frame (view 3's code) differs from plain")
+    log("[learners] engine B's view-3 baked frame equals the plain frame (tolerance 0)")
+    check(not torch.equal(frames[0], frames[3]), "[learners] another view's code changed nothing")
+    out["B_baked_views_psnr_db"] = float(metrics.psnr(frames[0][..., :3], frames[3][..., :3]))
+    sB.rendering_extra_dims_from_training_view = 0
+    del frames, plain_frame
+    # a small live frame against the CPU
+    sw, sh = LEARN_SMALL
+    focal_s = tuple(f * sw / WIDTH for f in FOCAL)
+    card = sB.render(sw, sh, cam, focal_s, renderer="live")
+    cpu = Session(device="cpu")
+    cpu.engine = dataclasses.replace(engB, device=torch.device("cpu"))
+    cpu.state = {"params": tree_map(lambda x: x.cpu(), params),
+                 "occ": {"bitfield": stateB1["occ"]["bitfield"].cpu()}}
+    t = time.perf_counter()
+    on_host = cpu.render(sw, sh, cam, focal_s, renderer="live")
+    out["B_live_cpu_s"] = time.perf_counter() - t
+    out["B_live_cpu_agree"] = frame_agreement(f"[learners] engine B live {sw}x{sh} card vs CPU",
+                                              card.cpu(), on_host)
+    check(out["B_live_cpu_agree"] >= LIVE_MIN_AGREE, "[learners] engine B's live frame")
+    del sB, grid, meta, cpu, params
+    part("b")
+
+    # -- (c) lenses, distortion, motion blur
+    uv = pixel_grid_uv(WIDTH, HEIGHT, dev).reshape(-1, 2)
+    out["lens_ray_max_abs_err"] = {}
+    for mode, lp in LENS_PARAMS.items():
+        lens = Lens(LensMode(mode), lp)
+        o, d = uv_to_ray(uv, (WIDTH, HEIGHT), FOCAL, cam, (0.5, 0.5), lens)
+        oc, dc = uv_to_ray(uv.cpu(), (WIDTH, HEIGHT), FOCAL, cam, (0.5, 0.5), lens)
+        out["lens_ray_max_abs_err"][mode] = compare(  # compared a pixel row at a time
+            f"[learners] {mode} rays card vs CPU", d.cpu().reshape(HEIGHT, WIDTH, 3),
+            dc.reshape(HEIGHT, WIDTH, 3), **RAY_TOL)
+    ema = inference_params(state0["opt"], state0["params"])
+    engL = dataclasses.replace(eng0, lens=Lens(LensMode.OPENCV, LENS_PARAMS["opencv"]))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lf = engL.render_frame(ema, state0["occ"]["bitfield"], WIDTH, HEIGHT, cam, FOCAL,
+                           tile=LIVE_BIG_TILE)[0]
+    torch.cuda.synchronize()
+    out["opencv_live_ms"] = 1e3 * (time.perf_counter() - t)
+    check(bool(torch.isfinite(lf).all()) and float(lf[..., 3].mean()) > 0.05,
+          "[learners] the OpenCV-lens live frame is empty")
+    log(f"[learners] {WIDTH}x{HEIGHT} live frame through the OpenCV lens: "
+        f"{out['opencv_live_ms']:.1f} ms (tile 2^17), mean alpha {float(lf[..., 3].mean()):.3f}")
+    pA1 = stateA1["params"]
+    dist_card = engA.render_frame(pA1, stateA1["occ"]["bitfield"], WIDTH, HEIGHT, cam, FOCAL,
+                                  render_mode="distortion")[0]
+    dist_cpu = dataclasses.replace(engA, device=torch.device("cpu")).render_frame(
+        {"distortion": pA1["distortion"].cpu()}, stateA1["occ"]["bitfield"].cpu(), WIDTH,
+        HEIGHT, cam, FOCAL, render_mode="distortion")[0]
+    out["distortion_frame_max_abs_err"] = compare(
+        "[learners] distortion-mode frame card vs CPU", dist_card.cpu(), dist_cpu,
+        rtol=1e-4, atol=1e-4)
+    check(float(dist_card[..., :3].max()) > 0.0, "[learners] the distortion frame is black")
+    del lf, dist_card, dist_cpu
+    sw, sh = MOTION_SMALL
+    focal_s = tuple(f * sw / WIDTH for f in FOCAL)
+    end = look_at_matrix([2.0, 0.65, 0.75], [0.5, 0.5, 0.5])
+    sM = student(eng0, state0)
+    card = sM.render(sw, sh, cam, focal_s, spp=MOTION_SPP, camera_matrix_end=end)
+    cpu = Session(device="cpu")
+    cpu.engine = dataclasses.replace(eng0, device=torch.device("cpu"))
+    cpu.state = {"params": tree_map(lambda x: x.cpu(), ema),
+                 "occ": {"bitfield": state0["occ"]["bitfield"].cpu()}}
+    t = time.perf_counter()
+    on_host = cpu.render(sw, sh, cam, focal_s, spp=MOTION_SPP, camera_matrix_end=end)
+    out["motion_cpu_s"] = time.perf_counter() - t
+    out["motion_cpu_agree"] = frame_agreement(
+        f"[learners] motion-blurred {sw}x{sh} spp {MOTION_SPP} card vs CPU", card.cpu(), on_host)
+    check(out["motion_cpu_agree"] >= LIVE_MIN_AGREE, "[learners] the motion-blurred frame")
+    still = sM.render(sw, sh, cam, focal_s, spp=MOTION_SPP)
+    check(float((still - card).abs().max()) > 1e-2, "[learners] the blur moved nothing")
+    del cpu, sM, ema
+    part("c")
+
+    # -- (d) the legacy two-phase path: a deep bundle, the switch, a fast step
+    engD = dataclasses.replace(eng0, compact_training=False)
+    engD._phase = "deep"
+    out["D_step"] = learner_step_check("learners D (deep)", engD, state0, dev)
+    stateD, out["D_bundle"] = _timed_bundle("learners D (deep)", engD, state0, dev)
+    mean = out["D_bundle"]["samples_per_ray"]
+    out["D_phase_after"] = getattr(engD, "_phase", "deep")
+    check((out["D_phase_after"] == "fast") == (mean < engD.phase_switch_count * engD.deep_k),
+          f"[learners] the deep phase's switch: {out['D_phase_after']} at {mean:.1f} samples")
+    n_rays, k, iters = engD._phase_geometry()
+    draws = engD.draw_step(torch.Generator(device=dev).manual_seed(3), n_rays,
+                           int(stateD["step"]))
+    t = time.perf_counter()
+    _, loss, _ = engD.train_step(stateD, draws, k, iters)
+    out["D_next_step"] = {"phase": out["D_phase_after"], "n_rays": n_rays, "k": k,
+                          "loss": float(loss), "ms": 1e3 * (time.perf_counter() - t)}
+    check(math.isfinite(float(loss)), "[learners] the step after the deep bundle")
+    log(f"[learners] two-phase: after the deep bundle ({mean:.1f} samples a ray at k "
+        f"{engD.deep_k}) the phase is {out['D_phase_after']}; its next step at {n_rays} rays x "
+        f"k {k}: loss {float(loss):.5f}, {out['D_next_step']['ms']:.1f} ms")
+    del engA, engB, engD, stateA, stateA1, stateB, stateB1, stateD, pA, pB
+    part("d")
+    out["part_s"] = part_s
+    out["launches"] = launches
+    out["launches_by_kernel"] = {k: sum(c[k] for c in launches.values())
+                                 for k in ("shade", "sweep", "gather_rows", "gather_small")}
+    log(f"[learners] kernel launches on the learner paths: {launches}")
+    return out
+
+
 def frame_agreement(name, got, want) -> float:
     """The share of pixels of `got` within FRAME_TOL of `want`."""
     import torch
@@ -2199,7 +2666,8 @@ def main() -> int:
     log(f"[gather] G1 x{len(bench_gather.G1_CASES)} and G2 x{len(bench_gather.G2_CASES)} "
         f"shapes bit-equal to their plain versions (tolerance 0)")
     gather_rows.launches = gather_small.launches = 0
-    probe = bench_gather.run({"g1", "g2"}, dev, reps=20, out=lambda l: log(f"[gather] {l}"))
+    probe = bench_gather.run({"g1", "g2"}, dev, reps=GATHER_REPS,
+                             out=lambda l: log(f"[gather] {l}"))
     torch.cuda.synchronize()
     launches_probe = {"gather_rows": gather_rows.launches,
                       "gather_small": gather_small.launches}
@@ -2559,6 +3027,12 @@ def main() -> int:
         pg = png_phase(tr, sess.network_config, dev, Path(png_dir))
     pg["phase_s"] = time.time() - t
     log(f"[png] phase in {pg['phase_s']:.1f} s")
+    # -- 10c. the trainer's optional learners on the student, at full width
+    torch.cuda.empty_cache()
+    t = time.time()
+    ln = learners_phase(sess, tr, dev, cuda_ms)
+    ln["phase_s"] = time.time() - t
+    log(f"[learners] phase in {ln['phase_s']:.1f} s (host max RSS {host_rss_gib():.1f} GiB)")
     # -- 11. the image, SDF and volume modes and mesh export; none of them
     # launches K1, K2, G1 or G2 (the JAX package runs them in XLA alone)
     for key in ("engine", "state", "dataset"):  # the student's device memory
@@ -2617,7 +3091,9 @@ def main() -> int:
          "launches_configs_path": cf["launches"]["shade"],
          "max_abs_err_configs": {k: v["k1_max_abs_err"] for k, v in cf["by_config"].items()},
          "configs_timed": cf["timed"], "launches_triplane_path": tp["launches"]["shade"],
-         "max_abs_err_triplane": tp["k1_max_abs_err"]},
+         "max_abs_err_triplane": tp["k1_max_abs_err"],
+         "launches_learners_path": ln["launches_by_kernel"]["shade"],
+         "max_abs_err_learners_frame": ln["A_frame_max_abs_err"]},
         {"name": "sweep", "route": "cuda", "source": "sienerf_torch/csrc/sweep.cu",
          "replaces": REPLACES["sweep"], "launches": launches["sweep"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
@@ -2634,7 +3110,9 @@ def main() -> int:
          "hybrid_t_stop_bound_by": hy["k2_bound"]["bound_by"],
          "launches_configs_path": cf["launches"]["sweep"],
          "launches_triplane_path": tp["launches"]["sweep"],
-         "max_abs_err_triplane": tp["k2_max_abs_err"]},
+         "max_abs_err_triplane": tp["k2_max_abs_err"],
+         "launches_learners_path": ln["launches_by_kernel"]["sweep"],
+         "max_abs_err_learners": ln["B_k2_max_abs_err"], "learners_ms": ln["B_k2_ms"]},
     ]
     for name, tag, r in (("gather_rows", "G1", g1_main), ("gather_small", "G2", g2_main)):
         fr = bk["gathers"][tag]  # at the baked frame's shapes, on its ids
@@ -2649,7 +3127,8 @@ def main() -> int:
              "baked_launches_hybrid": hy["baked"]["launches"][name],
              "baked_ms": fr["ms"], "baked_call_ms": fr["call_ms"],
              "baked_plain_ms": fr["plain_ms"], "baked_bound_ms": fr["bound_ms"],
-             "baked_library_ms": fr["library_ms"], "baked_shape": fr["shape"]})
+             "baked_library_ms": fr["library_ms"], "baked_shape": fr["shape"],
+             "launches_learners_path": ln["launches_by_kernel"][name]})
     log(json.dumps({"frame_ms": frame_med,
                     "frame_ms_by_view": [statistics.median(ms) for ms in frame_ms_by_view],
                     "bake_s": bake_s, "live_frame_ms": live_med,
@@ -2682,7 +3161,8 @@ def main() -> int:
                         "frame_ms", "frame_ms_runs", "split_ms", "load_and_bake_s",
                         "psnr_vs_live_db", "ssim_vs_live", "phase_s")},
                     "modes": modes, "modes_s": modes_s,
-                    "configs": cf, "fine": fn, "triplane": tp, "png": pg}))
+                    "configs": cf, "fine": fn, "triplane": tp, "png": pg,
+                    "learners": ln}))
     for k in kernels:  # the image, SDF, volume and mesh paths launch none
         k["launches_modes_paths"] = sum(m["launches"][k["name"]] for m in modes.values())
     log(smi)

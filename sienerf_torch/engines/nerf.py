@@ -24,13 +24,23 @@ on-device while loop; here the loop is a Python `while` that asks the
 device once per round whether any ray is alive, and every step inside is
 plain PyTorch.
 
-Not ported yet (Slice C2 of ROADMAP.md; each raises NotImplementedError):
-the optional learners (extrinsics, focal, exposure, distortion map with
-render mode `distortion`, extra-dim conditioning, trainable envmap), depth
-supervision, rolling shutter, the near-density regulariser and the legacy
-two-phase path (compact_training=False).  A trained envmap in the params
-is read as the frame's background.  `bake_render_grid` bakes the fine
-render grid that render_frame's `fine_bitfield` takes.
+The optional learners train with the field: per-camera se(3) deltas
+(`cam`), a log-scale focal (`focal`), per-image exposure (`exposure`), the
+32x32 distortion map (`distortion`), per-image extra dims (`extra_dims`:
+latent codes, or fixed light directions at rate 0) and the lat-long envmap
+(`envmap`), at `extrinsics_lr_scale` times the rate for the first three;
+the loss takes depth supervision and the near-density regulariser; rays
+follow rolling shutter and every lens of utils/camera.py.  A camera
+learner moves the samples, so its gradient reaches the field through the
+sample positions (the hash grid's position gradient) and through the
+march's t chain (ops/raymarch.py::march_rays' `t_grad`); without one the
+positions take no gradient.  Every sum of the learners' gradients over
+rays or samples runs in a fixed order (ops/fixed_order.py::take_rows).
+The legacy two-phase path (compact_training=False: a deep full-ray phase,
+then fixed-k marching with an optional adaptive ray count) trains too.
+`bake_render_grid` bakes the fine render grid that render_frame's
+`fine_bitfield` takes; render mode `distortion` shows the lens and the
+distortion map as a colour wheel of each pixel's uv shift.
 """
 
 from __future__ import annotations
@@ -43,7 +53,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from sienerf_torch.common import NERF_RENDERING_NEAR_DISTANCE, LensMode
+from sienerf_torch.common import NERF_RENDERING_NEAR_DISTANCE
 from sienerf_torch.io.nerf_dataset import NerfDataset
 from sienerf_torch.models.nerf_network import (
     NerfNetworkConfig,
@@ -55,6 +65,7 @@ from sienerf_torch.models.nerf_network import (
     nerf_l2_mask,
 )
 from sienerf_torch.ops.envmap import background_behind_envmap
+from sienerf_torch.ops.fixed_order import take_rows
 from sienerf_torch.ops.hashgrid import pack_table_bf16, pack_table_fp8
 from sienerf_torch.ops.importance import (
     draw_error_map_uniforms,
@@ -95,8 +106,16 @@ from sienerf_torch.ops.raymarch import (
     cone_angle_for_aabb,
     march_rays,
 )
+from sienerf_torch.ops.tonemap import flow_to_rgb
 from sienerf_torch.utils.bbox import BoundingBox
-from sienerf_torch.utils.camera import Lens, uv_to_ray
+from sienerf_torch.utils.camera import (
+    Lens,
+    camera_slerp,
+    pixel_grid_uv,
+    rotate,
+    undistort,
+    uv_to_ray,
+)
 
 RENDER_MODES = ("shade", "cost", "positions", "depth", "ao", "encoding_vis", "normals")
 _FRAME_PHASES = ("setup", "advance", "march", "eval", "composite", "flush")
@@ -153,12 +172,20 @@ class NerfEngine:
     # the training march budget, which bounds the render budget too: the
     # field is only trained to explain pixels within that march
     train_k: int = 64
+    train_march_iters: int = 192  # march iterations of the legacy fast phase
     # compacted training: march every ray to completion (at most
     # max_samples_per_ray samples), pack the samples into one dense batch
-    # and follow the measured samples a ray with the ray count; the legacy
-    # two-phase path (False) is not ported yet
+    # and follow the measured samples a ray with the ray count.  False: the
+    # legacy two-phase path, a deep phase of deep_k-sample rays until the
+    # mean samples a ray fall under phase_switch_count * deep_k, then
+    # train_k samples a ray (adapt_ray_count: the ray count follows the
+    # measured samples, in power-of-two buckets)
     compact_training: bool = True
     max_samples_per_ray: int = 1024
+    deep_k: int = 512
+    deep_march_iters: int = 1280
+    phase_switch_count: float = 0.75
+    adapt_ray_count: bool = False
     # the training near plane: closer than this the field is untrained
     near_distance: float = 0.1
     grid_interval: int = 16  # steps a bundle: one occupancy update each
@@ -169,17 +196,32 @@ class NerfEngine:
     use_error_map: bool = True
     error_map_res: int = 32
     error_map_warmup: int = 256
-    # optional learners and loss terms (Slice C2 of ROADMAP.md): setting
-    # one raises NotImplementedError when training starts
+    # the optional learners: per-camera se(3) deltas, a log-scale focal and
+    # per-image exposure (at extrinsics_lr_scale times the rate), the
+    # trainable distortion map
     optimize_extrinsics: bool = False
+    extrinsics_lr_scale: float = 1e-3
     optimize_focal: bool = False
     optimize_exposure: bool = False
     optimize_distortion: bool = False
+    distortion_resolution: int = 32
+    # the near-density regulariser (compact training only): an L1 penalty
+    # on the optical thickness in the first near_reg_fraction of each ray
     near_density_reg: float = 0.0
     near_reg_fraction: float = 0.25
+    # depth supervision, when the dataset has depth images
     depth_supervision_lambda: float = 0.0
+    # the trainable lat-long envmap behind the random background (on when
+    # the dataset has one; else black and opaque at envmap_resolution)
     train_envmap: bool = False
+    envmap_resolution: tuple = (128, 256)  # (H, W)
+    envmap_init: np.ndarray | None = None  # (H, W, 4)
+    # rolling shutter and motion blur: a pixel's camera is slerped between
+    # xforms and xforms_end at rs[0] + rs[1] u + rs[2] v + rs[3] * random
     rolling_shutter: np.ndarray | None = None
+    # per-image extra dims: fixed light directions (the first 3, rate 0)
+    # and/or learnable latent codes
+    light_dirs: np.ndarray | None = None  # (N, 3) unit, NGP axes
     optimize_extra_dims: bool = False
     render_chunk: int = 16  # samples per ray between field evaluations
     render_max_chunks: int = 96
@@ -210,21 +252,15 @@ class NerfEngine:
                device: str | torch.device = "cuda") -> "NerfEngine":
         """An engine for `dataset` on `device`: the network, optimizer and
         occupancy configs, the cells some camera sees, and the device
-        copies of the images and cameras.  A dataset that needs an optional
-        learner of Slice C2 (extra dims, light directions, an envmap,
-        rolling shutter, depth), or a near-density regulariser, raises
-        NotImplementedError."""
-        c2 = "is not ported yet: Slice C2 of ROADMAP.md"
-        if dataset.n_extra_dims:
-            raise NotImplementedError(f"extra-dim conditioning (light dirs, latent codes) {c2}")
-        if dataset.envmap is not None:
-            raise NotImplementedError(f"the trainable envmap {c2}")
-        if dataset.xforms_end is not None:
-            raise NotImplementedError(f"rolling shutter and motion blur {c2}")
-        if dataset.depths is not None:
-            raise NotImplementedError(f"depth supervision {c2}")
+        copies of the images and cameras (and of the end cameras and depth
+        images, where the dataset has them).  The dataset's extra dims
+        (learnable codes, plus 3 with light directions) widen the colour
+        MLP; only learnable codes train.  Its rolling shutter and envmap
+        turn those on."""
         aabb_scale = dataset.aabb_scale
+        light_dirs = dataset.light_dirs
         net = NerfNetworkConfig.from_network_config(network_config, aabb_scale=aabb_scale,
+                                                    n_extra_dims=dataset.n_extra_dims,
                                                     hdr=dataset.is_hdr)
         n_casc = n_cascades_for_aabb_scale(aabb_scale)
         occ = OccupancyConfig(n_cascades=n_casc, grid_size=grid_size)
@@ -248,9 +284,16 @@ class NerfEngine:
             lens=dataset.lens,
             near_density_reg=near_density_reg,
             near_reg_fraction=near_reg_fraction,
+            light_dirs=None if light_dirs is None else np.asarray(light_dirs, np.float32),
+            optimize_extra_dims=dataset.n_extra_learnable_dims > 0,
             device=dev,
         )
-        eng._check_trainable()
+        if dataset.xforms_end is not None:
+            eng.rolling_shutter = np.asarray(dataset.rolling_shutter, np.float32)
+        if dataset.envmap is not None:
+            eng.train_envmap = True
+            eng.envmap_init = np.asarray(dataset.envmap, np.float32)
+            eng.envmap_resolution = tuple(dataset.envmap.shape[:2])
         eng.visible_mask = mark_untrained_cells(
             occ, dataset.xforms, dataset.focal_lengths,
             np.asarray([dataset.resolution] * len(dataset.xforms), np.float32))
@@ -263,6 +306,10 @@ class NerfEngine:
                     "focals": put(eng.focals.astype(np.float32)),
                     "pp": put(eng.principal_points.astype(np.float32)),
                     "visible_mask": put(eng.visible_mask)}
+        if dataset.xforms_end is not None:
+            eng.data["xforms_end"] = put(np.asarray(dataset.xforms_end, np.float32))
+        if dataset.depths is not None:
+            eng.data["depths"] = put(np.asarray(dataset.depths, np.float32))
         return eng
 
     @staticmethod
@@ -308,11 +355,44 @@ class NerfEngine:
         return eng, state
 
     def init(self, seed: int = 1337) -> dict:
-        """A fresh training state: params, optimizer state, occupancy grid,
-        step 0 and the error map, drawn from a generator seeded with
-        `seed` on the engine's device."""
+        """A fresh training state: params (and the leaves of the learners
+        that are on), optimizer state, occupancy grid, step 0 and the error
+        map, drawn from a generator seeded with `seed` on the engine's
+        device.  Camera, focal, exposure and distortion leaves start at 0;
+        the extra dims U[-1, 1] (light directions (d + 1) / 2 in the first
+        3); the envmap at the dataset's map, else black and opaque (alpha
+        takes no gradient)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params = init_nerf_network(self.net, gen, self.device)
+        dev, n_img = self.device, self.images.shape[0]
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+        if self.optimize_extrinsics:
+            params["cam"] = zeros(n_img, 6)  # (rotation, translation) se(3) deltas
+        if self.optimize_focal:
+            params["focal"] = zeros(2)  # log scale of (fx, fy)
+        if self.optimize_exposure:
+            params["exposure"] = zeros(n_img, 1)
+        if self.optimize_distortion:
+            r = self.distortion_resolution
+            params["distortion"] = zeros(r, r, 2)
+        if self.net.n_extra_dims:
+            ex = torch.empty((n_img, self.net.n_extra_dims), dtype=torch.float32,
+                             device=dev).uniform_(-1.0, 1.0, generator=gen)
+            if self.light_dirs is not None:
+                ex[:, :3] = torch.from_numpy((self.light_dirs + 1.0) * 0.5).to(dev)
+            params["extra_dims"] = ex
+        if self.train_envmap:
+            if self.envmap_init is not None:
+                params["envmap"] = torch.from_numpy(
+                    np.ascontiguousarray(self.envmap_init, np.float32)).to(dev)
+            else:
+                # opaque: alpha does not train, and a transparent map would
+                # let each step's random background through for good
+                params["envmap"] = zeros(*tuple(self.envmap_resolution), 4)
+                params["envmap"][..., 3] = 1.0
         state = {
             "params": params,
             "opt": optim_init(params, self.opt),
@@ -334,9 +414,17 @@ class NerfEngine:
     def _render_near(self) -> float:
         return max(NERF_RENDERING_NEAR_DISTANCE, self.near_distance)
 
-    def _eval_samples(self, params, origins, dirs, ts, dts, counts):
+    def _render_extra(self, params):
+        """The extra-dim row frames use by default: training view 0's."""
+        if self.net.n_extra_dims and "extra_dims" in params:
+            return params["extra_dims"][0]
+        return None
+
+    def _eval_samples(self, params, origins, dirs, ts, dts, counts, extra=None):
         """Evaluate the field at (N, K) marched samples -> activated rgb
-        (N, K, 3), density (N, K), valid (N, K)."""
+        (N, K, 3), density (N, K), valid (N, K).  `extra`: the extra-dim
+        conditioning, one (E,) row for every ray or (N, E) a ray; None
+        takes the render default (_render_extra)."""
         N, K = ts.shape
         dev = ts.device
         valid = torch.arange(K, device=dev)[None, :] < counts[:, None]
@@ -346,8 +434,17 @@ class NerfEngine:
         unit = unit.clamp(0.0, 1.0)
         dirw = (dirs / _norm(dirs) + 1.0) * 0.5
         dirw = dirw[:, None, :].expand(N, K, 3)
+        ex = None
+        if self.net.n_extra_dims:
+            if extra is None:
+                extra = self._render_extra(params)
+            if extra is not None:
+                E = self.net.n_extra_dims
+                extra = torch.as_tensor(extra, dtype=torch.float32, device=dev)
+                ex = extra.expand(N * K, E) if extra.dim() == 1 \
+                    else extra[:, None, :].expand(N, K, E).reshape(-1, E)
         rgb_raw, dens_raw = nerf_apply(self.net, params, unit.reshape(-1, 3),
-                                       dirw.reshape(-1, 3))
+                                       dirw.reshape(-1, 3), extra=ex)
         rgb = apply_rgb_activation(rgb_raw, self.net.rgb_activation).reshape(N, K, 3)
         dens = apply_density_activation(dens_raw, self.net.density_activation).reshape(N, K)
         return rgb, torch.where(valid, dens, 0.0), valid
@@ -358,27 +455,15 @@ class NerfEngine:
 
     # --- training ---------------------------------------------------------
 
-    def _check_trainable(self) -> None:
-        c2 = "is not ported yet: Slice C2 of ROADMAP.md"
-        if not self.compact_training:
-            raise NotImplementedError(f"the two-phase path (compact_training=False) {c2}")
-        for on, what in ((self.optimize_extrinsics, "extrinsics optimisation"),
-                         (self.optimize_focal, "focal optimisation"),
-                         (self.optimize_exposure, "exposure optimisation"),
-                         (self.optimize_distortion, "the trainable distortion map"),
-                         (self.optimize_extra_dims, "extra-dim conditioning"),
-                         (self.train_envmap, "the trainable envmap"),
-                         (self.near_density_reg > 0.0, "the near-density regulariser"),
-                         (self.depth_supervision_lambda > 0.0, "depth supervision"),
-                         (self.rolling_shutter is not None, "rolling shutter")):
-            if on:
-                raise NotImplementedError(f"{what} {c2}")
+    def _shutter(self) -> bool:
+        return self.rolling_shutter is not None and "xforms_end" in self.data
 
     def draw_step(self, generator: torch.Generator, n_rays: int, step: int) -> dict:
         """The random part of one training step, on the engine's device:
         the rays' images and pixels (uniform "img_idx" and "uv" before the
         error map's warm-up ends, the sampler's uniforms "emap" after), the
-        first-sample jitter and the random background."""
+        first-sample jitter, the random background and, with rolling
+        shutter, each ray's motion-blur time "shutter"."""
         dev = self.device
         d = {}
         if self.use_error_map and step >= self.error_map_warmup:
@@ -389,11 +474,15 @@ class NerfEngine:
             d["uv"] = torch.rand((n_rays, 2), generator=generator, device=dev)
         d["jitter"] = torch.rand((n_rays,), generator=generator, device=dev)
         d["bg"] = torch.rand((n_rays, 3), generator=generator, device=dev)
+        if self._shutter():
+            d["shutter"] = torch.rand((n_rays,), generator=generator, device=dev)
         return d
 
-    def _sample_training_rays(self, draws: dict, emap: dict | None):
+    def _sample_training_rays(self, draws: dict, emap: dict | None, cam: dict | None = None):
         """draws -> (origins, dirs, target rgba, background, (img_idx, u, v)
-        at the pixel centres).  Pinhole cameras."""
+        at the pixel centres, target depth or None).  Rolling shutter
+        slerps each ray's camera; `cam` holds the camera learners' leaves
+        ("cam", "focal", "distortion") that move the rays."""
         w, h = self.resolution
         data = self.data
         if "emap" in draws:
@@ -404,58 +493,131 @@ class NerfEngine:
         px = torch.clamp((u * w).to(torch.int64), max=w - 1)
         py = torch.clamp((v * h).to(torch.int64), max=h - 1)
         uv = torch.stack([(px.float() + 0.5) / w, (py.float() + 0.5) / h], dim=-1)
-        origins, dirs = _batched_uv_to_ray(uv, (w, h), data["focals"][img_idx],
-                                           data["pp"][img_idx], data["xforms"][img_idx],
-                                           self.lens)
-        target = data["images"].reshape(-1, 4)[(img_idx * h + py) * w + px]
-        return origins, dirs, target, draws["bg"], (img_idx, uv[:, 0], uv[:, 1])
+        xf = data["xforms"][img_idx]
+        if self._shutter():
+            # the pixel's shutter time, plus a random motion-blur time.  The
+            # slerp runs in float64 and rounds once: in f32 its quaternions
+            # lose up to ~1e-4 (a small component is the square root of a
+            # cancellation), and the card's and the CPU's last bits of
+            # arccos and sin would then move rays apart by ~1e-6, enough to
+            # move samples across occupancy boundaries
+            rs = [float(x) for x in self.rolling_shutter]
+            pixel_t = rs[0] + rs[1] * uv[:, 0] + rs[2] * uv[:, 1] + rs[3] * draws["shutter"]
+            xf = camera_slerp(xf.double(), data["xforms_end"][img_idx].double(),
+                              pixel_t.double()).float()
+        fl = data["focals"][img_idx]
+        cam = cam or {}
+        if "cam" in cam:
+            xf = _apply_se3_delta(xf, take_rows(cam["cam"], img_idx))
+        if "focal" in cam:
+            # exp in float64, rounded once: the same scale on every device
+            fl = fl * torch.exp(cam["focal"].double()).float()[None, :]
+        origins, dirs = _batched_uv_to_ray(uv, (w, h), fl, data["pp"][img_idx], xf,
+                                           self.lens, cam.get("distortion"))
+        pix = (img_idx * h + py) * w + px
+        target = data["images"].reshape(-1, 4)[pix]
+        depth = data["depths"].reshape(-1)[pix] if "depths" in data else None
+        return origins, dirs, target, draws["bg"], (img_idx, uv[:, 0], uv[:, 1]), depth
 
     def _loss_for_batch(self, params: dict, bitfield: torch.Tensor, draws: dict,
                         emap: dict | None, k: int, iters: int, clock: "_PhaseClock"):
-        """The compacted training loss of one batch -> (loss, (counts,
-        per-ray loss, (img_idx, u, v)))."""
-        origins, dirs, target, bg, ray_meta = self._sample_training_rays(draws, emap)
+        """The training loss of one batch -> (loss, (counts, per-ray loss,
+        (img_idx, u, v)))."""
+        cam = {n: params[n] for n in ("cam", "focal", "distortion") if n in params}
+        origins, dirs, target, bg, ray_meta, depth_target = self._sample_training_rays(
+            draws, emap, cam)
         dirs_n = dirs / _norm(dirs)
         t0, t1 = self._aabb_times(origins, dirs_n, self.near_distance)
         # first-sample jitter: decorrelates the sample lattice across steps
         t0 = t0 + calc_dt(t0, self.march.cone_angle) * draws["jitter"]
+        # a camera learner moves the samples: their positions take its
+        # gradient, along the march's t chain too
+        t_grad = bool(origins.requires_grad or dirs_n.requires_grad)
         clock.phase("sample")
-        ts, dts, counts, t_end = march_rays(self.march, bitfield, origins, dirs_n, t0, t1,
-                                            k, iters)
+        marched = march_rays(self.march, bitfield, origins.detach(), dirs_n.detach(),
+                             t0.detach(), t1.detach(), k, iters, t_grad=t_grad)
+        ts, dts, counts, t_end = marched[:4]
         n = origins.shape[0]
-        t_f, dt_f, ray_id, ray_start, fits = compact_samples(
-            ts, dts, counts, self.train_n_rays * self.train_k)
-        rid = torch.clamp(ray_id.to(torch.int64), max=n - 1)
-        o_s, d_s = origins[rid], dirs_n[rid]
-        pos = o_s + t_f[:, None] * d_s
-        amin, adiag = self._aabb_tensors()
-        unit = torch.clamp((pos - amin) / adiag, 0.0, 1.0)
-        dirw = (d_s + 1.0) * 0.5
-        clock.phase("march")
-        rgb_raw, dens_raw = nerf_apply(self.net, params, unit, dirw)
-        clock.phase("field")
-        if clock.sync and rgb_raw.requires_grad:
-            # the backward reaches the field's outputs when the composite's
-            # and the loss's backward are done
-            for t in (rgb_raw, dens_raw):
-                t.register_hook(lambda g: clock.phase("composite"))
-        rgb_s = apply_rgb_activation(rgb_raw, self.net.rgb_activation)
-        dens_s = apply_density_activation(dens_raw, self.net.density_activation)
-        rgb_sum, _, T_out, _ = composite_flat(rgb_s, dens_s, t_f, dt_f, ray_id, ray_start,
-                                              n, self.min_transmittance)
-        # a ray trains only when its march completed: it left the scene or
-        # its transmittance fell below the threshold; a ray cut by the
-        # sample cap or the iteration budget would train a fog billboard
-        fits = fits & ((t_end >= t1) | (T_out < self.min_transmittance))
+        img_idx = ray_meta[0]
+        extra = params.get("extra_dims") if self.net.n_extra_dims else None
+        if self.compact_training:
+            M = self.train_n_rays * self.train_k
+            t_f, dt_f, ray_id, ray_start, fits = compact_samples(ts, dts, counts, M)
+            rid = torch.clamp(ray_id.to(torch.int64), max=n - 1)
+            if t_grad:
+                g_t, g_dt = compact_samples(marched[4], marched[5], counts, M)[:2]
+                t0_s = take_rows(t0, rid)
+                shift = t0_s - t0_s.detach()  # 0, with t0's gradient
+                t_f, dt_f = t_f + g_t * shift, dt_f + g_dt * shift
+                o_s, d_s = take_rows(origins, rid), take_rows(dirs_n, rid)
+            else:
+                o_s, d_s = origins[rid], dirs_n[rid]
+            pos = o_s + t_f[:, None] * d_s
+            amin, adiag = self._aabb_tensors()
+            unit = torch.clamp((pos - amin) / adiag, 0.0, 1.0)
+            dirw = (d_s + 1.0) * 0.5
+            # each sample's extra dims are its image's row
+            ex_s = None if extra is None else take_rows(extra, img_idx[rid])
+            clock.phase("march")
+            rgb_raw, dens_raw = nerf_apply(self.net, params, unit, dirw, extra=ex_s)
+            clock.phase("field")
+            if clock.sync and rgb_raw.requires_grad:
+                # the backward reaches the field's outputs when the
+                # composite's and the loss's backward are done
+                for t in (rgb_raw, dens_raw):
+                    t.register_hook(lambda g: clock.phase("composite"))
+            rgb_s = apply_rgb_activation(rgb_raw, self.net.rgb_activation)
+            dens_s = apply_density_activation(dens_raw, self.net.density_activation)
+            rgb_sum, _, T_out, depth_pred = composite_flat(
+                rgb_s, dens_s, t_f, dt_f, ray_id, ray_start, n, self.min_transmittance)
+            # a ray trains only when its march completed: it left the scene
+            # or its transmittance fell below the threshold; a ray cut by
+            # the sample cap or the iteration budget would train a fog
+            # billboard
+            fits = fits & ((t_end >= t1) | (T_out < self.min_transmittance))
+        else:
+            if t_grad:
+                shift = (t0 - t0.detach())[:, None]
+                ts, dts = ts + marched[4] * shift, dts + marched[5] * shift
+            ex_r = None if extra is None else take_rows(extra, img_idx)
+            clock.phase("march")
+            rgb, dens, valid = self._eval_samples(params, origins, dirs_n, ts, dts, counts,
+                                                  extra=ex_r)
+            clock.phase("field")
+            rgb_sum, _, T_out, _, _ = composite_chunk(
+                rgb, dens, ts, dts, valid, torch.ones_like(t0), self.min_transmittance)
+            fits = torch.ones((n,), dtype=torch.bool, device=t0.device)
+            alpha = 1.0 - torch.exp(-dens * dts)
+            cum = torch.cumprod(1.0 - alpha, dim=1)
+            T_excl = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
+            depth_pred = (alpha * T_excl * ts).sum(dim=1)
+        if "envmap" in params:
+            # the random background composited behind the envmap
+            bg = background_behind_envmap(params["envmap"], dirs_n, bg)
         pred = rgb_sum + T_out[:, None] * bg
-        # the target composited over the same background
+        if "exposure" in params:
+            pred = pred * torch.exp(take_rows(params["exposure"], img_idx))
+        # the target composited over the same background, which takes no
+        # gradient on this side (the envmap's gradient is the prediction's)
         gt = target[:, :3] * target[:, 3:4] + bg.detach() * (1.0 - target[:, 3:4])
         per_ray = get_loss(self.loss_otype)(pred, gt).mean(dim=-1)
         # masked pixels carry negative rgb and add nothing; the mean's
         # denominator counts the rays that train
         ray_ok = (target[:, 0] >= 0.0) & fits
         per_ray = torch.where(ray_ok, per_ray, 0.0)
-        loss = per_ray.sum() / torch.clamp(ray_ok.float().sum(), min=1.0)
+        denom = torch.clamp(ray_ok.float().sum(), min=1.0)
+        loss = per_ray.sum() / denom
+        if self.near_density_reg > 0.0 and self.compact_training:
+            # optical thickness in the first near_reg_fraction of each ray
+            near_cut = (t0 + self.near_reg_fraction * (t1 - t0)).detach()[rid]
+            near = (t_f < near_cut) & (ray_id.to(torch.int64) < n)
+            reg = torch.where(near, dens_s * dt_f, 0.0).sum() / denom
+            loss = loss + self.near_density_reg * reg
+        if depth_target is not None and self.depth_supervision_lambda > 0.0:
+            # rays with a depth (> 0): the expected termination distance
+            d_ok = ray_ok & (depth_target > 0.0)
+            d_err = torch.where(d_ok, (depth_pred - depth_target).abs(), 0.0)
+            loss = loss + self.depth_supervision_lambda * d_err.sum() / denom
         return loss, (counts, per_ray, ray_meta)
 
     def loss_and_grads(self, state: dict, draws: dict, k: int, iters: int,
@@ -475,13 +637,25 @@ class NerfEngine:
     def train_step(self, state: dict, draws: dict, k: int, iters: int,
                    clock: "_PhaseClock | None" = None):
         """One step from `draws` (draw_step) -> (new state, loss, mean
-        samples a ray), the two numbers as 0-d tensors."""
-        self._check_trainable()
+        samples a ray), the two numbers as 0-d tensors.  The camera, focal
+        and exposure leaves step at extrinsics_lr_scale times the rate;
+        extra dims that are not learnable (light directions) do not
+        move."""
         clock = clock or _PhaseClock(None, self.device)
         loss, grads, (counts, per_ray, ray_meta) = self.loss_and_grads(
             state, draws, k, iters, clock)
-        params, opt = optim_step(self.opt, state["opt"], state["params"], grads,
-                                 nerf_l2_mask(state["params"]))
+        p = state["params"]
+        lr_mask = None
+        freeze_extra = "extra_dims" in p and not self.optimize_extra_dims
+        if self.optimize_extrinsics or self.optimize_focal or self.optimize_exposure \
+                or freeze_extra:
+            lr_mask = tree_map(lambda _: 1.0, p)
+            for leaf in ("cam", "focal", "exposure"):
+                if leaf in p:
+                    lr_mask[leaf] = self.extrinsics_lr_scale
+            if freeze_extra:
+                lr_mask["extra_dims"] = 0.0
+        params, opt = optim_step(self.opt, state["opt"], p, grads, nerf_l2_mask(p), lr_mask)
         new_state = {**state, "params": params, "opt": opt, "step": int(state["step"]) + 1}
         if "emap" in state:
             img_idx, u, v = ray_meta
@@ -515,11 +689,20 @@ class NerfEngine:
         return {**state, "occ": occ}
 
     def _phase_geometry(self):
-        """(n_rays, k, march_iters) of the next bundle.  The first marches
-        1024-sample rays; later ones set k from the measured samples a ray
-        and the ray count so that the compacted samples fill the
-        train_n_rays * train_k batch, both in power-of-four buckets (they
-        define the batch, and in the reference each pair is a compile)."""
+        """(n_rays, k, march_iters) of the next bundle.  Compacted: the
+        first marches 1024-sample rays; later ones set k from the measured
+        samples a ray and the ray count so that the compacted samples fill
+        the train_n_rays * train_k batch, both in power-of-four buckets
+        (they define the batch, and in the reference each pair is a
+        compile).  Two-phase: deep_k-sample rays filling the batch in the
+        deep phase, then train_k samples on train_n_rays rays (or the
+        adaptive count)."""
+        if not self.compact_training:
+            if getattr(self, "_phase", "deep") == "deep":
+                return (max(64, self.train_n_rays * self.train_k // self.deep_k),
+                        self.deep_k, self.deep_march_iters)
+            n_rays = getattr(self, "_adaptive_n_rays", None) or self.train_n_rays
+            return n_rays, self.train_k, self.train_march_iters
         M = self.train_n_rays * self.train_k
         mean = getattr(self, "_mean_samples", None)
         if not mean or mean <= 0:
@@ -532,10 +715,25 @@ class NerfEngine:
             n_rays = 4 ** int(np.clip(np.round(np.log(max(want, 64.0)) / np.log(4)), 3, 8))
         return n_rays, k, int(k + k // 2 + 128)
 
-    def _update_phase(self, mean_count: float) -> None:
-        if mean_count > 0:
-            prev = getattr(self, "_mean_samples", None)
-            self._mean_samples = mean_count if not prev else 0.7 * prev + 0.3 * mean_count
+    def _update_phase(self, mean_count: float, k: int = 0) -> None:
+        """Fold a bundle's mean samples a ray (of k-sample rays) in:
+        compacted, a running mean; two-phase, the switch from the deep
+        phase once the mean falls under phase_switch_count * k, then (with
+        adapt_ray_count) a ray count that fills the batch, in power-of-two
+        buckets within [train_n_rays / 4, 16 train_n_rays]."""
+        if self.compact_training:
+            if mean_count > 0:
+                prev = getattr(self, "_mean_samples", None)
+                self._mean_samples = mean_count if not prev else 0.7 * prev + 0.3 * mean_count
+            return
+        if getattr(self, "_phase", "deep") == "deep" \
+                and mean_count < self.phase_switch_count * k:
+            self._phase = "fast"
+        elif self.adapt_ray_count and mean_count > 0:
+            want = self.train_n_rays * self.train_k / mean_count
+            bucket = 1 << int(np.clip(np.round(np.log2(max(want, 256))), 8, 20))
+            self._adaptive_n_rays = int(np.clip(bucket, self.train_n_rays // 4,
+                                                self.train_n_rays * 16))
 
     def train_bundle(self, state: dict, generator: torch.Generator,
                      stats: dict | None = None):
@@ -546,7 +744,6 @@ class NerfEngine:
         iterations, and with stats["sync_phases"] set the seconds of each
         training phase (TRAIN_PHASES), measured by synchronising the device
         after each (which slows the bundle)."""
-        self._check_trainable()
         clock = _PhaseClock(stats, self.device, TRAIN_PHASES)
         n_rays, k, iters = self._phase_geometry()
         state = self.occupancy_update(state, self.draw_occupancy(state, generator))
@@ -558,10 +755,16 @@ class NerfEngine:
             losses.append(loss)
             counts.append(cnt)
         loss, cnt = torch.stack(losses).mean(), torch.stack(counts).mean()
-        self._update_phase(float(cnt))
+        self._update_phase(float(cnt), k)
         if stats is not None:
             stats.update(n_rays=n_rays, k=k, iters=iters)
         return state, loss, cnt
+
+    def train_bundle_multichip(self, state, generator, mesh=None):
+        """The data-parallel bundle over several cards is not ported yet:
+        Slice G of ROADMAP.md (torch.distributed)."""
+        raise NotImplementedError("train_bundle_multichip is not ported yet: Slice G of "
+                                  "ROADMAP.md (multi-device paths over torch.distributed)")
 
     def eval_psnr(self, state: dict, view_indices, background=(0.0, 0.0, 0.0),
                   downscale: int = 1):
@@ -586,10 +789,12 @@ class NerfEngine:
 
     # --- rendering --------------------------------------------------------
 
-    def _mode_sample_colors(self, params, origins, dirs, ts, dts, counts, render_mode):
+    def _mode_sample_colors(self, params, origins, dirs, ts, dts, counts, render_mode,
+                            extra=None):
         """Per-sample colours of a render visualisation mode: positions,
         depth and ao replace the sample colour, glow adds an overlay."""
-        rgb, dens, valid = self._eval_samples(params, origins, dirs, ts, dts, counts)
+        rgb, dens, valid = self._eval_samples(params, origins, dirs, ts, dts, counts,
+                                              extra=extra)
         mode = render_mode or "shade"
         if mode in ("shade", "cost"):
             return rgb, dens, valid
@@ -688,11 +893,9 @@ class NerfEngine:
 
     @staticmethod
     def _check_mode(render_mode) -> None:
+        """Modes of marched frames ("distortion", a frame of its own, is
+        render_frame's alone)."""
         mode = render_mode or "shade"
-        if mode == "distortion":
-            raise NotImplementedError(
-                "render mode 'distortion' (the trainable distortion map) is not ported "
-                "yet: Slice C2 of ROADMAP.md")
         if mode not in RENDER_MODES and not mode.startswith("glow"):
             raise ValueError(f"render mode {mode} not supported for NeRF")
 
@@ -710,14 +913,16 @@ class NerfEngine:
 
     @torch.no_grad()
     def render_rays(self, params, bitfield, origins, dirs, near=None, t_cap=None,
-                    min_transmittance=None, fine_bitfield=None, render_mode=None):
+                    min_transmittance=None, fine_bitfield=None, render_mode=None,
+                    extra_row=None):
         """Fixed-size ray batch -> (rgb (N, 3), opacity (N,), depth (N,)).
 
         Rounds of `render_chunk` samples between field evaluations, until
         every ray is dead.  `t_cap` (optional, per ray, in units of the
         unnormalised `dirs`) bounds the march, as a hybrid pass stops rays
         at mesh surfaces.  `min_transmittance` defaults to the interactive
-        early-out (render_min_transmittance)."""
+        early-out (render_min_transmittance).  `extra_row` selects another
+        view's extra dims (default view 0's)."""
         self._check_mode(render_mode)
         if near is None:
             near = self._render_near()
@@ -752,7 +957,7 @@ class NerfEngine:
                 self._march_iters(), fine=fine_bitfield)
             counts = torch.where(active, counts, 0)
             rgb, dens, valid = self._mode_sample_colors(
-                params, origins, dirs_n, ts, dts, counts, render_mode)
+                params, origins, dirs_n, ts, dts, counts, render_mode, extra=extra_row)
             rgb_sum, opacity, T_out, bw, bt = composite_chunk(
                 rgb, dens, ts, dts, valid, T, min_t)
             better = bw > best_w
@@ -777,7 +982,7 @@ class NerfEngine:
                      focal_length, tile: int = 1 << 14, screen_center=(0.5, 0.5),
                      background=(0.0, 0.0, 0.0), min_transmittance=None,
                      fine_bitfield=None, pixel_offset=None, render_mode=None,
-                     stats: dict | None = None):
+                     stats: dict | None = None, extra_row=None):
         """Render a full frame with the streaming ray buffer -> rgba
         (H, W, 4) and depth (H, W) on the engine's params' device.
 
@@ -785,9 +990,14 @@ class NerfEngine:
         it.  `stats`, when given, receives the number of rounds, the
         samples the field evaluated, the seconds the host waited for the
         device's alive test, and (with stats["sync_phases"] set) the seconds
-        of each phase."""
-        self._check_mode(render_mode)
+        of each phase.  `extra_row` selects another view's extra dims
+        (default view 0's).  Render mode "distortion" marches nothing: see
+        _render_distortion_frame."""
         dev = bitfield.device
+        if render_mode == "distortion":
+            return self._render_distortion_frame(params, width, height, camera_matrix,
+                                                 focal_length, screen_center, dev)
+        self._check_mode(render_mode)
         clock = _PhaseClock(stats, dev)
         if stats is not None:
             stats.update(rounds=0, host_wait_s=0.0)
@@ -836,7 +1046,7 @@ class NerfEngine:
         clock.phase("setup")
         while clock.any_alive(self._frame_alive(s)):
             s = self._frame_round(s, params, words, n, rays_pre, fine_bitfield,
-                                  render_mode, clock)
+                                  render_mode, clock, extra_row)
             if stats is not None:
                 stats["rounds"] += 1
         if stats is not None:
@@ -858,9 +1068,30 @@ class NerfEngine:
         clock.phase("setup")
         return rgba.reshape(height, width, 4), depth.reshape(height, width)
 
+    def _render_distortion_frame(self, params, width: int, height: int, camera_matrix,
+                                 focal_length, screen_center, dev):
+        """Render mode "distortion": each pixel's uv shift (x64) by the lens
+        undistortion and the trainable distortion map, its distorted ray's
+        t = 1 point projected back through the pinhole model, as an HSV
+        colour wheel -> (rgba (H, W, 4), depth (H, W) of ones)."""
+        uv = pixel_grid_uv(width, height, dev).reshape(-1, 2)
+        _, d = uv_to_ray(uv, (width, height), focal_length, camera_matrix, screen_center,
+                         self.lens, distortion_grid=params.get("distortion"))
+        cam = torch.as_tensor(np.asarray(camera_matrix, np.float32), device=dev)
+        dc = rotate(cam[:3, :3].T, d)  # world -> camera frame, R^T d
+        fl = np.asarray(focal_length, np.float32)
+        sc = np.asarray(screen_center, np.float32)
+        z = torch.where(dc[:, 2].abs() < 1e-9, 1e-9, dc[:, 2])
+        uv2 = torch.stack([dc[:, 0] / z * float(fl[0]) / width + float(sc[0]),
+                           dc[:, 1] / z * float(fl[1]) / height + float(sc[1])], dim=-1)
+        rgb = flow_to_rgb((uv2 - uv) * 64.0)
+        rgba = torch.cat([rgb, torch.ones_like(rgb[:, :1])], dim=-1)
+        depth = torch.ones((width * height,), dtype=torch.float32, device=dev)
+        return rgba.reshape(height, width, 4), depth.reshape(height, width)
+
     def _frame_make_rays(self, ids: torch.Tensor, n: int, cam_spec, bounds=None):
-        """Pixel ids -> (origin, unit dir, |dir|, t0, t1) for a pinhole
-        frame.  cam_spec = (width, height, focal, camera_matrix,
+        """Pixel ids -> (origin, unit dir, |dir|, t0, t1) through the
+        engine's lens.  cam_spec = (width, height, focal, camera_matrix,
         screen_center, pixel_offset); `bounds` = (lo, hi) of the occupied
         cells clamps entry and exit."""
         width, height, focal_length, camera_matrix, screen_center, off = cam_spec
@@ -951,7 +1182,7 @@ class NerfEngine:
         return r[:, 0:3], r[:, 3:6], r[:, 6], r[:, 7], r[:, 8]
 
     def _frame_round(self, s, params, words, n, rays_pre, fine_bitfield, render_mode,
-                     clock: _PhaseClock):
+                     clock: _PhaseClock, extra_row=None):
         """One round of the streaming renderer: march a chunk, evaluate and
         composite it, flush finished rays to the frame, refill their
         slots."""
@@ -960,7 +1191,7 @@ class NerfEngine:
             self._march_iters(), fine=fine_bitfield)
         clock.phase("march")
         rgb, dens, valid_s = self._mode_sample_colors(
-            params, s["o"], s["d"], ts, dts, counts, render_mode)
+            params, s["o"], s["d"], ts, dts, counts, render_mode, extra=extra_row)
         clock.phase("eval")
         rgb_sum, opacity, T_out, bw, bt = composite_chunk(
             rgb, dens, ts, dts, valid_s, s["T"], s["minT"])
@@ -1028,16 +1259,39 @@ class NerfEngine:
 
 
 def _batched_uv_to_ray(uv: torch.Tensor, resolution, focal: torch.Tensor,
-                       principal: torch.Tensor, xform: torch.Tensor, lens: Lens):
-    """Rays of pinhole cameras given per ray: uv (N, 2), focal (N, 2),
-    principal point (N, 2), xform (N, 3, 4) -> (origins, dirs).  The
-    rotation is applied as explicit f32 products and sums, never a matmul
-    that could run in TF32 (the reference's einsum is Precision.HIGHEST)."""
-    if lens.mode != LensMode.PERSPECTIVE:
-        raise NotImplementedError(f"lens {lens.mode} is not ported yet")
+                       principal: torch.Tensor, xform: torch.Tensor, lens: Lens,
+                       distortion_grid: torch.Tensor | None = None):
+    """Rays of cameras given per ray: uv (N, 2), focal (N, 2), principal
+    point (N, 2), xform (N, 3, 4) -> (origins, dirs), through the OpenCV
+    and fisheye undistortion of `lens` (the training rays' lenses, as in
+    the reference) and the distortion map's bilinear offset.  The rotation
+    is applied as explicit f32 products and sums, never a matmul that could
+    run in TF32 (the reference's einsum is Precision.HIGHEST)."""
     w, h = resolution
     x = (uv[:, 0] - principal[:, 0]) * w / focal[:, 0]
     y = (uv[:, 1] - principal[:, 1]) * h / focal[:, 1]
+    x, y = undistort(lens, x, y)
+    if distortion_grid is not None:
+        from sienerf_torch.ops.grids import bilinear_sample_2d
+
+        delta = bilinear_sample_2d(distortion_grid, uv)
+        x = x + delta[:, 0]
+        y = y + delta[:, 1]
     rot = xform[:, :3, :3]
     dirs = rot[:, :, 0] * x[:, None] + rot[:, :, 1] * y[:, None] + rot[:, :, 2]
     return xform[:, :3, 3], dirs
+
+
+def _apply_se3_delta(xform: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """Small se(3) deltas (N, 6) = (w, v) applied to (N, 3, 4) cameras by
+    the first-order exponential map: R' = (I + [w]x) R, t' = t + v, the
+    product written as explicit f32 products and sums."""
+    w, v = delta[:, :3], delta[:, 3:]
+    zeros = torch.zeros_like(w[:, 0])
+    skew = torch.stack([torch.stack([zeros, -w[:, 2], w[:, 1]], dim=-1),
+                        torch.stack([w[:, 2], zeros, -w[:, 0]], dim=-1),
+                        torch.stack([-w[:, 1], w[:, 0], zeros], dim=-1)], dim=1)
+    R = xform[:, :3, :3]
+    sR = skew[:, :, 0, None] * R[:, 0, None, :] + skew[:, :, 1, None] * R[:, 1, None, :] \
+        + skew[:, :, 2, None] * R[:, 2, None, :]
+    return torch.cat([R + sR, (xform[:, :3, 3] + v)[:, :, None]], dim=-1)

@@ -25,8 +25,9 @@ counts its rounds.  The gather-strategy knobs (cull, fine, heads, adv)
 take their defaults from SIENERF_CULL, SIENERF_FINE, SIENERF_CULL_HEADS,
 SIENERF_FINE_HEADS and SIENERF_ADV, as in the JAX package.
 
-Not ported yet: extra-dim conditioning of the colour MLP (Slice C2b of
-ROADMAP.md, raises) and the multichip frame (Slice G).
+A network with extra dims shades every candidate with one row of them
+(training view 0's, or the `extra_row` a frame is given).  Not ported
+yet: the multichip frame (Slice G of ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -244,20 +245,32 @@ def _candidate_chain(t0: torch.Tensor, cone_angle: float, n: int, step_scale: fl
 def _colors_from_raw(engine, params: dict, raw: torch.Tensor, d: torch.Tensor, shape,
                      valid: torch.Tensor):
     """(A*P, F) raw baked features -> per-candidate (rgb (A, P, 3), density
-    (A, P)) through the colour MLP."""
+    (A, P)) through the colour MLP, with the params' render row of extra
+    dims (NerfEngine._render_extra; zeros when they have none)."""
     A, P = shape
     net = engine.net
-    if net.n_extra_dims:
-        raise NotImplementedError(
-            "extra-dim conditioning of the baked renderer's colour MLP is not ported yet: "
-            "Slice C2b of ROADMAP.md")
     dens = apply_density_activation(raw[:, 0], net.density_activation)
     dirw = (d / torch.sqrt((d * d).sum(dim=-1, keepdim=True)) + 1.0) * 0.5
     sh = sh_encode(dirw, net.sh_degree)  # (A, sh)
-    sh = sh[:, None, :].expand(A, P, sh.shape[-1]).reshape(A * P, -1)
-    rgb_raw = mlp_apply(net.rgb_mlp, params["rgb_mlp"], torch.cat([sh, raw], dim=-1))
+    parts = [sh[:, None, :].expand(A, P, sh.shape[-1]).reshape(A * P, -1)]
+    if net.n_extra_dims:
+        row = engine._render_extra(params)
+        if row is None:
+            row = torch.zeros((net.n_extra_dims,), dtype=torch.float32, device=raw.device)
+        parts.append(row.expand(A * P, net.n_extra_dims))
+    parts.append(raw)
+    rgb_raw = mlp_apply(net.rgb_mlp, params["rgb_mlp"], torch.cat(parts, dim=-1))
     rgb = apply_rgb_activation(rgb_raw, net.rgb_activation).reshape(A, P, 3)
     return rgb, torch.where(valid, dens.reshape(A, P), 0.0)
+
+
+def with_extra_row(params: dict, extra_row) -> dict:
+    """The params a frame renders with: with `extra_row` given, its render
+    row of extra dims (view 0's by default) is that row."""
+    if extra_row is None:
+        return params
+    row = torch.as_tensor(extra_row, dtype=torch.float32, device=params["rgb_mlp"][0].device)
+    return dict(params, extra_dims=row.reshape(1, -1))
 
 
 def _baked_sample_colors(engine, params, grid, meta, o, d, ts, valid, impl="kernel",
@@ -558,9 +571,10 @@ def render_frame_baked(engine, params, bitfield, grid, camera_matrix, focal_leng
                        background=(0.0, 0.0, 0.0), min_transmittance=None, pixel_offset=None,
                        t_phase=None, return_stats: bool = False, cull=None, fine=None,
                        cull_heads=None, fine_heads=None, adv=None, impl: str = "kernel",
-                       stats: dict | None = None):
+                       stats: dict | None = None, extra_row=None):
     """A full baked frame -> (rgba (H, W, 4), depth (H, W)), and with
     return_stats an int64 tensor [rounds, ray-rounds, evals, overflows].
+    `extra_row` shades with another view's extra dims (default view 0's).
 
     `resolution`, `mode` and `n_cascades` are the bake's meta.  `tile` is
     the number of ray slots.  `init_advance_iters` sizes the frame-init
@@ -574,6 +588,7 @@ def render_frame_baked(engine, params, bitfield, grid, camera_matrix, focal_leng
     knobs = resolve_baked_knobs(cull, fine, cull_heads, fine_heads, adv)
     meta = {"resolution": resolution, "mode": mode, "n_cascades": n_cascades}
     dev = bitfield.device
+    params = with_extra_row(params, extra_row)
     if stats is not None:
         stats.update(rounds=0, host_wait_s=0.0)
     clock = _PhaseClock(stats, dev, BAKED_PHASES)

@@ -19,8 +19,10 @@ CUDA kernels for CUDA tensors and take the plain versions only for
 tensors on the CPU.  A network that K1 does not take (the JAX package's
 eligibility test: SH degree other than 4, extra dims, a non-ReLU colour
 MLP) is shaded by the plain shade and composited by K2, the JAX package's
-route for such configs.  `impl="plain"` runs the plain PyTorch versions on any
-device, as the oracle the kernels are checked against.
+route for such configs; a field with extra dims (latent codes, light
+directions) goes this way, shaded with one row of them (training view 0's,
+or the frame's `extra_row`).  `impl="plain"` runs the plain PyTorch
+versions on any device, as the oracle the kernels are checked against.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from sienerf_torch.common import NERF_RENDERING_NEAR_DISTANCE, NerfActivation
+from sienerf_torch.engines.nerf_baked import with_extra_row
 from sienerf_torch.ops.baked import row_bits
 from sienerf_torch.ops.envmap import background_behind_envmap
 from sienerf_torch.ops.shade import shade_planes, shade_volume
@@ -41,9 +44,14 @@ E_MAX = 16.0  # gnomonic clamp: rays more than ~86 deg off-axis render as backgr
 def prepare_rgba_volume(engine, params, rows, scale, cam_origin,
                         resolution: int, n_cascades: int) -> torch.Tensor:
     """Plain shade pass: (K*(R+1)^3, F) rows -> (K, R+1, R+1, R+1, 4) bf16
-    premultiplied [s*r, s*g, s*b, s] volume for `cam_origin`."""
+    premultiplied [s*r, s*g, s*b, s] volume for `cam_origin`, with the
+    params' render row of extra dims (zeros when they have none)."""
+    extra = None
     if engine.net.n_extra_dims:
-        raise NotImplementedError("extra-dim conditioning is not ported yet")
+        extra = engine._render_extra(params)
+        if extra is None:
+            extra = torch.zeros((engine.net.n_extra_dims,), dtype=torch.float32,
+                                device=rows.device)
     R, K = resolution, n_cascades
     Rv = R + 1
     dev = rows.device
@@ -54,7 +62,7 @@ def prepare_rgba_volume(engine, params, rows, scale, cam_origin,
                        engine.net.rgb_mlp, resolution=R,
                        density_act=engine.net.density_activation,
                        rgb_act=engine.net.rgb_activation,
-                       sh_degree=engine.net.sh_degree)
+                       sh_degree=engine.net.sh_degree, extra=extra)
     return vol.reshape(K, Rv, Rv, Rv, 4)
 
 
@@ -145,13 +153,15 @@ def render_frame_sweep(engine, params, grid, meta, camera_matrix, focal_length, 
                        impl: str = "kernel", packed: bool = False,
                        screen_center=(0.5, 0.5), background=(0.0, 0.0, 0.0),
                        min_transmittance=None, pixel_offset=None,
-                       interp: str = "nearest", axis_phase=None):
+                       interp: str = "nearest", axis_phase=None, extra_row=None):
     """Full-frame slab-sweep render -> (rgba (H, W, 4), depth (H, W)), or one
     channel-major (5, H, W) array [r, g, b, a, depth] when `packed`.
 
     `grid`/`meta` come from bake_feature_grid (mode 'nearest').
     `axis_phase` in [0, 1) moves every sample plane by that fraction of its
-    pitch (the spp jitter)."""
+    pitch (the spp jitter).  `extra_row` shades with another view's extra
+    dims (default view 0's)."""
+    params = with_extra_row(params, extra_row)
     if meta["mode"] != "nearest":
         raise ValueError("sweep renderer needs a mode='nearest' bake")
     if impl not in ("kernel", "plain"):

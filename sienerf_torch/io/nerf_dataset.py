@@ -13,8 +13,12 @@ Conventions kept exactly:
   rgb -1 and alpha 0, and training skips them.
 
 Images load through io/image_io.py: PNG through the port's own decoder
-(io/png.py), JPG through OpenCV, imported when such an image is read.  EXR
-images and depth images are not ported yet.
+(io/png.py), EXR through the port's own codec (io/exr.py, linear, and the
+dataset is then HDR), JPG through OpenCV, imported when such an image is
+read.  Depth images (a frame's `depth_path`) are in NGP units: the stored
+value times `integer_depth_scale` (default 1/65535) times the scene scale;
+16-bit PNG and EXR read through the port's own readers, any other format
+through OpenCV.
 """
 
 from __future__ import annotations
@@ -119,6 +123,33 @@ def _resolve_image_path(base: Path, file_path: str) -> Path | None:
     return None
 
 
+def _read_depth(path: Path) -> np.ndarray | None:
+    """A depth image's first channel as OpenCV reads it (IMREAD_UNCHANGED,
+    channels in BGR order): 8- or 16-bit PNG through io/png.py, EXR through
+    io/exr.py, other formats through OpenCV."""
+    suffix = path.suffix.lower()
+    if suffix == ".png":
+        from sienerf_torch.io.png import read_png
+
+        d = read_png(path)
+        if d.ndim == 3:
+            d = d[..., 2] if d.shape[-1] >= 3 else d[..., 0]
+        return d
+    if suffix == ".exr":
+        from sienerf_torch.io.exr import read_exr
+
+        ch = read_exr(path)
+        name = "B" if "B" in ch else sorted(ch)[0]
+        return np.asarray(ch[name], np.float32)
+    from sienerf_torch.io.image_io import _cv2
+
+    cv2 = _cv2()
+    d = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    if d is not None and d.ndim == 3:
+        d = d[..., 0]
+    return d
+
+
 def load_nerf_dataset(path: str | Path, split: str = "train", downscale: int = 1,
                       max_images: int | None = None) -> NerfDataset:
     """Load a directory holding transforms.json (or transforms_{split}.json,
@@ -156,12 +187,13 @@ def load_nerf_dataset(path: str | Path, split: str = "train", downscale: int = 1
     white_transparent = bool(meta.get("white_transparent", False))
     black_transparent = bool(meta.get("black_transparent", False))
     enable_depth = bool(meta.get("enable_depth_loading", True))
+    integer_depth_scale = float(meta.get("integer_depth_scale", 1.0 / 65535.0))
 
     def load_one(fr):
         p = _resolve_image_path(base, fr["file_path"])
         if p is None:
             return None
-        img = load_image(p, as_float_linear=False)  # LDR stays sRGB
+        img = load_image(p, as_float_linear=False)  # LDR stays sRGB, EXR linear
         if downscale > 1:
             img = img[::downscale, ::downscale]
         # NSVF's white (or black) = transparent
@@ -177,10 +209,13 @@ def load_nerf_dataset(path: str | Path, split: str = "train", downscale: int = 1
             masked = mask[..., 0] > 0.5
             img[..., :3] = np.where(masked[..., None], -1.0, img[..., :3])
             img[..., 3] = np.where(masked, 0.0, img[..., 3])
+        depth = None
         if enable_depth and fr.get("depth_path") and (base / fr["depth_path"]).exists():
-            raise NotImplementedError("depth images (depth supervision) are not ported "
-                                      "yet: Slice C2 of ROADMAP.md")
-        return p, img
+            d = _read_depth(base / fr["depth_path"])
+            if d is not None:
+                depth = d.astype(np.float32)[::downscale, ::downscale]
+                depth *= integer_depth_scale * scale
+        return p, img, depth
 
     with futures.ThreadPoolExecutor(max_workers=16) as ex:
         loaded = list(ex.map(load_one, frames))
@@ -191,11 +226,18 @@ def load_nerf_dataset(path: str | Path, split: str = "train", downscale: int = 1
     frames = [fr for fr, _ in kept]
     paths = [pl[0] for _, pl in kept]
     imgs = [pl[1] for _, pl in kept]
+    depth_imgs = [pl[2] for _, pl in kept]
     h = max(im.shape[0] for im in imgs)
     w = max(im.shape[1] for im in imgs)
     images = np.zeros((len(imgs), h, w, 4), np.float32)
     for i, im in enumerate(imgs):
         images[i, : im.shape[0], : im.shape[1]] = im
+    depths = None
+    if any(d is not None for d in depth_imgs):
+        depths = np.zeros((len(imgs), h, w), np.float32)
+        for i, d in enumerate(depth_imgs):
+            if d is not None:
+                depths[i, : d.shape[0], : d.shape[1]] = d
     has_masks = bool((images[..., :3] < 0).any())
 
     def focal_from(src, axis, res):
@@ -272,8 +314,8 @@ def load_nerf_dataset(path: str | Path, split: str = "train", downscale: int = 1
         aabb_scale=aabb_scale,
         scale=scale,
         offset=offset,
-        is_hdr=False,
-        depths=None,
+        is_hdr=paths[0].suffix.lower() == ".exr",
+        depths=depths,
         sharpness=sharp,
         # light-dir datasets force the learnable count to 0
         n_extra_learnable_dims=0 if has_light_dirs

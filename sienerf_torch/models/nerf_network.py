@@ -8,7 +8,8 @@ grid (f32 cell table, or its bf16 / fp8 render packing), the triplane
 (configs/nerf/tensor.json: three 2-D hash grids over the coordinate pairs
 (x, y), (y, z), (z, x), their features concatenated; params["grid"] is
 then a list of three f32 cell tables) or one of the analytic encodings.
-Extra-dim conditioning is not ported yet.
+Extra dims (per-image latent codes, light directions) condition the
+colour MLP between the SH block and the geo features.
 """
 
 from __future__ import annotations
@@ -121,7 +122,7 @@ def init_nerf_network(config: NerfNetworkConfig, generator: torch.Generator,
 
 def nerf_l2_mask(params: dict) -> dict:
     """1.0 on the MLP matrices, which take l2 regularisation, 0.0 on the
-    hash table (each of the triplane's tables)."""
+    hash table (each of the triplane's tables) and the learners' leaves."""
     mask = {
         "density_mlp": [1.0 for _ in params["density_mlp"]],
         "rgb_mlp": [1.0 for _ in params["rgb_mlp"]],
@@ -129,6 +130,9 @@ def nerf_l2_mask(params: dict) -> dict:
     if "grid" in params:
         mask["grid"] = [0.0 for _ in params["grid"]] \
             if isinstance(params["grid"], (list, tuple)) else 0.0
+    for extra in ("cam", "focal", "exposure", "distortion", "envmap", "extra_dims"):
+        if extra in params:
+            mask[extra] = 0.0
     return mask
 
 
@@ -160,15 +164,21 @@ def density_raw(config: NerfNetworkConfig, params: dict,
 
 
 def nerf_apply(config: NerfNetworkConfig, params: dict, pos_unit: torch.Tensor,
-               dir_unit_cube: torch.Tensor):
+               dir_unit_cube: torch.Tensor, extra: torch.Tensor | None = None):
     """Full forward: (N, 3) warped positions and (N, 3) directions warped to
-    [0,1]^3 -> (rgb_raw (N, 3), density_raw (N,)), both pre-activation."""
-    if config.n_extra_dims:
-        raise NotImplementedError("extra-dim conditioning is not ported yet")
+    [0,1]^3 -> (rgb_raw (N, 3), density_raw (N,)), both pre-activation.
+    `extra` (N, n_extra_dims) conditions the colour MLP (zeros when the
+    network has extra dims and none are given)."""
     feats = _encode_pos(config, params, pos_unit)
     geo = mlp_apply(config.density_mlp, params["density_mlp"], feats)
-    sh = sh_encode(dir_unit_cube, config.sh_degree)
-    rgb = mlp_apply(config.rgb_mlp, params["rgb_mlp"], torch.cat([sh, geo], dim=-1))
+    parts = [sh_encode(dir_unit_cube, config.sh_degree)]
+    if config.n_extra_dims:
+        if extra is None:
+            extra = torch.zeros(pos_unit.shape[:-1] + (config.n_extra_dims,),
+                                dtype=torch.float32, device=pos_unit.device)
+        parts.append(extra)
+    parts.append(geo)
+    rgb = mlp_apply(config.rgb_mlp, params["rgb_mlp"], torch.cat(parts, dim=-1))
     return rgb, geo[..., 0]
 
 

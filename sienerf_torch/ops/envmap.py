@@ -1,13 +1,17 @@
-"""Lat-long environment-map lookups (port of the read side of the JAX
-package's ops/envmap.py): the map's bilinear read, with longitude wrapping
-and latitude clamped, and the background composited behind the map.  The
-trainable envmap itself waits for Slice C2b of ROADMAP.md."""
+"""The trainable lat-long environment map (port of the JAX package's
+ops/envmap.py): the map's bilinear read, with longitude wrapping and
+latitude clamped, and the background composited behind the map.  The read
+is differentiable in the map and in the directions; the map's gradient,
+the reference's 4-texel splat, sums each texel's shares in a fixed order
+(ops/fixed_order.py::take_rows).  The alpha channel takes no gradient."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+
+from sienerf_torch.ops.fixed_order import take_rows
 
 
 def dir_to_latlong_uv(dirs: torch.Tensor) -> torch.Tensor:
@@ -30,15 +34,17 @@ def read_envmap(envmap: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     y0 = torch.floor(fy).to(torch.int64)
     wx = (fx - x0)[:, None]
     wy = (fy - y0)[:, None]
-    flat = envmap.reshape(H * W, -1)
 
     def at(xi, yi):
         xi = torch.where(xi < 0, xi + W, torch.where(xi >= W, xi - W, xi))
         yi = torch.clamp(yi, 0, H - 1)
-        return flat[yi * W + xi]
+        return yi * W + xi
 
-    return ((1 - wx) * (1 - wy) * at(x0, y0) + wx * (1 - wy) * at(x0 + 1, y0)
-            + (1 - wx) * wy * at(x0, y0 + 1) + wx * wy * at(x0 + 1, y0 + 1))
+    corners = torch.stack([at(x0, y0), at(x0 + 1, y0), at(x0, y0 + 1), at(x0 + 1, y0 + 1)],
+                          dim=-1)
+    f = take_rows(envmap.reshape(H * W, -1), corners)  # (N, 4, 4)
+    return ((1 - wx) * (1 - wy) * f[:, 0] + wx * (1 - wy) * f[:, 1]
+            + (1 - wx) * wy * f[:, 2] + wx * wy * f[:, 3])
 
 
 def background_behind_envmap(envmap: torch.Tensor, dirs: torch.Tensor,

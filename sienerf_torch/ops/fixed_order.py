@@ -12,6 +12,9 @@ order fixed by the data alone, on every device:
 - `fixed_cumsum`: an inclusive prefix sum by blocks: a scan within each
   block of `_BLOCK` values (torch's per-row scan, which runs in a fixed
   order for a 2-D tensor), then the same function on the blocks' totals.
+- `take_rows`: a row gather whose backward is a segment sum of the
+  gradients in a stable sort of the indices (the per-image learners and
+  the envmap's and distortion map's bilinear splats).
 
 Each is differentiable where a caller needs it: the backward of a segment
 sum is a gather, that of a prefix sum the reversed prefix sum of the
@@ -115,3 +118,31 @@ def segment_sum_sorted(vals: torch.Tensor, seg: torch.Tensor, n_segments: int) -
     ((v0 + v1) + (v2 + v3)) + ..., the same on every device and every
     run.  Differentiable in vals."""
     return _SegmentSumSorted.apply(vals, seg.to(torch.int64), n_segments)
+
+
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        keys, order = torch.sort(flat, stable=True)
+        rows = g.reshape((flat.shape[0],) + g.shape[idx.dim():])[order]
+        return segment_sum_sorted(rows, keys, ctx.n_rows), None
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] (rows of `table` at int indices of any shape),
+    differentiable in `table`: the backward sums the gradients of each
+    row's gathers by segment_sum_sorted, in the order of a stable sort of
+    the indices, where autograd of indexing would add them with the card's
+    unordered scatters.  Without a gradient to take it is plain
+    indexing."""
+    if not (torch.is_grad_enabled() and table.requires_grad):
+        return table[idx]
+    return _TakeRows.apply(table, idx.to(torch.int64))

@@ -1,11 +1,15 @@
 """Texture fetches (port of the JAX package's ops/grids.py): bilinear and
-nearest 2-D (the irradiance maps, the image trainer's targets) and
-trilinear 3-D (the volume mode's density grid).  The trainable distortion
-map waits for Slice C2b of ROADMAP.md."""
+nearest 2-D (the irradiance maps, the image trainer's targets, the
+trainable distortion map) and trilinear 3-D (the volume mode's density
+grid).  The bilinear fetch is differentiable in the grid and in uv; its
+grid gradient, the distortion map's splat, sums each texel's shares in a
+fixed order (ops/fixed_order.py::take_rows)."""
 
 from __future__ import annotations
 
 import torch
+
+from sienerf_torch.ops.fixed_order import take_rows
 
 
 def bilinear_sample_2d(grid: torch.Tensor, uv: torch.Tensor,
@@ -27,9 +31,10 @@ def bilinear_sample_2d(grid: torch.Tensor, uv: torch.Tensor,
     y0 = torch.clamp(y0.to(torch.int64), 0, H - 1)
     x1 = torch.clamp(x0 + 1, 0, W - 1)
     y1 = torch.clamp(y0 + 1, 0, H - 1)
-    g = grid.reshape(H * W, -1)
-    out = (g[y0 * W + x0] * (1 - fx) * (1 - fy) + g[y0 * W + x1] * fx * (1 - fy)
-           + g[y1 * W + x0] * (1 - fx) * fy + g[y1 * W + x1] * fx * fy)
+    corners = torch.stack([y0 * W + x0, y0 * W + x1, y1 * W + x0, y1 * W + x1], dim=-1)
+    f = take_rows(grid.reshape(H * W, -1), corners)  # (..., 4, C)
+    out = (f[..., 0, :] * (1 - fx) * (1 - fy) + f[..., 1, :] * fx * (1 - fy)
+           + f[..., 2, :] * (1 - fx) * fy + f[..., 3, :] * fx * fy)
     return out.reshape(uv.shape[:-1] + (grid.shape[-1],))
 
 

@@ -205,7 +205,8 @@ def _require_cell(config: HashGridConfig) -> None:
     if config.layout != "cell":
         raise NotImplementedError(
             "the corner table layout is ported for the f32 forward only (imported "
-            ".ingp fields); its backward and packed tables are not ported yet")
+            ".ingp fields); its backward and packed tables are not ported yet: the corner "
+            "layout item of ROADMAP.md's queue 1")
 
 
 def _geometry_corner(config: HashGridConfig, pos: torch.Tensor):

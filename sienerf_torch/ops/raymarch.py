@@ -85,7 +85,7 @@ def _probe_mip(config: MarchConfig, pos, dt):
 def march_rays(config: MarchConfig, bitfield: torch.Tensor, origins: torch.Tensor,
                dirs: torch.Tensor, t_start: torch.Tensor, t_far: torch.Tensor,
                n_samples: int, n_iters: int, span: int = 1,
-               fine: torch.Tensor | None = None):
+               fine: torch.Tensor | None = None, t_grad: bool = False):
     """Collect up to `n_samples` occupied-space samples per ray within a
     bounded march -> ts (N, K), dts (N, K), counts (N,), t_end (N,).
 
@@ -96,10 +96,19 @@ def march_rays(config: MarchConfig, bitfield: torch.Tensor, origins: torch.Tenso
     consecutive cone-step candidates per iteration with one batched
     occupancy probe, emits the leading occupied run and then makes at most
     one voxel skip: the same samples as the one-candidate loop in `span`
-    times fewer iterations (`n_iters` then counts those iterations)."""
+    times fewer iterations (`n_iters` then counts those iterations).
+
+    With `t_grad` (span 1 only) it also returns d ts / d t_start and
+    d dts / d t_start (N, K): a sample's t is t_start plus the march's cone
+    steps and voxel skips, each a whole number of steps calc_dt(t), so its
+    derivative is the product of (1 + n * calc_dt'(t)) over the steps
+    before it.  The JAX trainer differentiates its march loop; a trainer
+    that learns the cameras puts this chain on t_start."""
     if span <= 1:
         return _march_rays_scalar(config, bitfield, origins, dirs, t_start, t_far,
-                                  n_samples, n_iters, fine=fine)
+                                  n_samples, n_iters, fine=fine, t_grad=t_grad)
+    if t_grad:
+        raise ValueError("the march's t gradient is of the one-candidate loop (span 1)")
     if fine is not None:
         raise ValueError("span marching does not support the fine render grid")
     N, K, S = origins.shape[0], n_samples, span
@@ -150,7 +159,7 @@ def march_rays(config: MarchConfig, bitfield: torch.Tensor, origins: torch.Tenso
 
 
 def _march_rays_scalar(config: MarchConfig, bitfield, origins, dirs, t_start, t_far,
-                       n_samples: int, n_iters: int, fine=None):
+                       n_samples: int, n_iters: int, fine=None, t_grad: bool = False):
     """One candidate per iteration.  With `fine`, samples are emitted only
     where the fine grid is occupied, and empty space is skipped at the
     coarsest level that is empty: a whole coarse cell where the training
@@ -169,6 +178,10 @@ def _march_rays_scalar(config: MarchConfig, bitfield, origins, dirs, t_start, t_
     k = torch.zeros((N,), dtype=torch.int64, device=dev)
     ts = torch.zeros((N, K), dtype=torch.float32, device=dev)
     dts = torch.zeros((N, K), dtype=torch.float32, device=dev)
+    if t_grad:
+        g = torch.ones_like(t)
+        gts, gdts = torch.zeros_like(ts), torch.zeros_like(dts)
+        lo, hi = MIN_CONE_STEPSIZE, MAX_CONE_STEPSIZE
     for it in range(n_iters):
         # once every ray is done an iteration changes nothing: look every
         # _DONE_CHECK iterations (one host sync each) and stop
@@ -189,8 +202,18 @@ def _march_rays_scalar(config: MarchConfig, bitfield, origins, dirs, t_start, t_
         skip = _next_voxel_skip(t, pos, dirs, mip, dt, config.grid_size)
         if fine is not None:
             skip = torch.where(occ, _next_voxel_skip(t, pos, dirs, mip, dt, g_fine), skip)
+        if t_grad:
+            tc = t * config.cone_angle
+            ddt = torch.where((tc > lo) & (tc < hi), config.cone_angle, 0.0)
+            gts = torch.where(write, g[:, None], gts)
+            gdts = torch.where(write, (ddt * g)[:, None], gdts)
+            n_steps = torch.round(skip / dt)
+            g = torch.where(emit, g * (1.0 + ddt),
+                            torch.where(active, g * (1.0 + n_steps * ddt), g))
         t = torch.where(emit, t + dt, torch.where(active, t + skip, t))
         k = k + emit.to(torch.int64)
+    if t_grad:
+        return ts, dts, k, t, gts, gdts
     return ts, dts, k, t
 
 

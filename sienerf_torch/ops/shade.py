@@ -163,10 +163,12 @@ def shade_planes(planes: torch.Tensor, casc: torch.Tensor, iplane: torch.Tensor,
                  scale: torch.Tensor, cam_origin: torch.Tensor,
                  rgb_weights, rgb_mlp: MLPConfig, *, resolution: int,
                  density_act: NerfActivation, rgb_act: NerfActivation,
-                 sh_degree: int = 4) -> torch.Tensor:
+                 sh_degree: int = 4, extra: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version: shade a stack of vertex planes, (P, (R+1)^2, F) int
     rows of cascade `casc` (P,) and lattice plane `iplane` (P,) ->
-    (P, (R+1)^2, 4) bf16 premultiplied rgba, _PLANE_CHUNK planes at a time."""
+    (P, (R+1)^2, 4) bf16 premultiplied rgba, _PLANE_CHUNK planes at a time.
+    `extra` (E,), one row of extra dims for every vertex, goes between the
+    SH block and the features, as in the network (K1 takes none)."""
     R = resolution
     Rv = R + 1
     dev = planes.device
@@ -188,8 +190,9 @@ def shade_planes(planes: torch.Tensor, casc: torch.Tensor, iplane: torch.Tensor,
         dvec = pos - cam_origin
         dvec = dvec / torch.clamp(torch.sqrt((dvec * dvec).sum(-1, keepdim=True)), min=1e-6)
         sh = sh_encode((dvec + 1.0) * 0.5, sh_degree)
+        parts = [sh] if extra is None else [sh, extra.expand(sh.shape[0], extra.shape[0])]
         rgb = apply_rgb_activation(
-            mlp_apply(rgb_mlp, rgb_weights, torch.cat([sh, raw], dim=-1)), rgb_act)
+            mlp_apply(rgb_mlp, rgb_weights, torch.cat(parts + [raw], dim=-1)), rgb_act)
         rgba = torch.cat([rgb * dens[:, None], dens[:, None]], dim=-1)
         out[p0:p0 + n] = rgba.to(torch.bfloat16).reshape(n, Rv * Rv, 4)
     return out

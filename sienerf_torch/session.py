@@ -10,6 +10,7 @@ bakes from the optimizer's EMA shadow of the params."""
 
 from __future__ import annotations
 
+import dataclasses
 import zlib
 from pathlib import Path
 
@@ -45,7 +46,14 @@ from sienerf_torch.ops.meshing import extract_mesh, optimise_mesh
 from sienerf_torch.ops.optim import inference_params
 from sienerf_torch.ops.samplers import ld_pixel_offset
 from sienerf_torch.ops.tonemap import error_overlay
+from sienerf_torch.utils.camera import camera_slerp
 from sienerf_torch.utils.config import default_configs_dir, load_network_config
+
+
+# NerfEngine fields that load_file sets from its keyword arguments
+LEARNER_FLAGS = ("optimize_extrinsics", "optimize_focal", "optimize_exposure",
+                 "optimize_distortion", "train_envmap", "depth_supervision_lambda",
+                 "compact_training", "adapt_ray_count", "extrinsics_lr_scale")
 
 
 def mode_from_scene(path: str | Path) -> TestbedMode:
@@ -123,6 +131,9 @@ class Session:
         self.loss_graph: list[float] = []
         self._baked = None
         self._generator: torch.Generator | None = None
+        # the training view whose extra dims frames render with (0: the
+        # engine's default row)
+        self.rendering_extra_dims_from_training_view = 0
 
     def load_file(self, scene: str | Path, network: str | Path | None = None,
                   **engine_kwargs):
@@ -132,7 +143,11 @@ class Session:
         a geometry scene JSON, whose snapshot-backed NeRF objects load with
         it.  Dataset options: downscale, max_images, split; engine options:
         train_batch_size, grid_size, train_k, near_density_reg,
-        near_reg_fraction (geometry: data_root).  An image, a mesh or an
+        near_reg_fraction (geometry: data_root), and the learners and loss
+        terms, set on the engine before its state is made (LEARNER_FLAGS:
+        optimize_extrinsics, optimize_focal, optimize_exposure,
+        optimize_distortion, train_envmap, depth_supervision_lambda,
+        compact_training, adapt_ray_count, extrinsics_lr_scale).  An image, a mesh or an
         .nvdb volume loads its mode's engine (configs/<mode>/base.json by
         default; option batch_size, and host_gt for SDF) with fresh
         params."""
@@ -169,6 +184,9 @@ class Session:
                if k in ("train_batch_size", "grid_size", "train_k", "near_density_reg",
                         "near_reg_fraction")}
         self.engine = NerfEngine.create(self.network_config, ds, device=self.device, **ekw)
+        for k, v in engine_kwargs.items():
+            if k in LEARNER_FLAGS:
+                setattr(self.engine, k, v)
         self.state = self.engine.init(self.seed)
         self.dataset = ds
         return self
@@ -281,6 +299,7 @@ class Session:
             self.state = train_state_from_jax(payload["state"], self.device)
             _check_state_fits(self.engine, self.state, path)
             _restore_trainer_meta(self.engine, meta)
+            _restore_learners(self.engine, self.state["params"])
         else:
             self.network_config = payload.get("config") or {}
             self.engine, self.state = engine_from_snapshot(payload, path, self.device)
@@ -313,7 +332,11 @@ class Session:
         bake once (bake_resolution, bake_mode) and keep the bake.  spp > 1
         averages passes in float64, each with a low-discrepancy subpixel
         offset; the sweep adds a stratified slab-phase jitter and the baked
-        renderer a stratified chain-phase jitter.  A geometry scene renders
+        renderer a stratified chain-phase jitter.  `camera_matrix_end` blurs
+        motion: pass i renders at the camera slerped (i + 0.5) / spp of the
+        way from `camera_matrix` to it.  A field with extra dims renders
+        with training view `rendering_extra_dims_from_training_view`'s row
+        (an explicit `extra_row` wins).  A geometry scene renders
         its live hybrid frame (GeometryEngine.render_frame); an image its
         network at pixel centres (alpha 1 for three channels); an SDF its
         sphere-traced frame (alpha 1; SdfEngine.render_frame's options in
@@ -349,8 +372,12 @@ class Session:
             camera_matrix = eng.xforms[0]
             focal = tuple(np.asarray(eng.focals[0]) * width / eng.resolution[0])
             kw.setdefault("screen_center", tuple(np.asarray(eng.principal_points[0])))
-        cam = np.asarray(camera_matrix, np.float32)
+        start = np.asarray(camera_matrix, np.float32)
+        end = np.asarray(kw.pop("camera_matrix_end", start), np.float32)
         focal = tuple(np.asarray(focal, np.float32))
+        ev = int(self.rendering_extra_dims_from_training_view)
+        if ev > 0 and "extra_dims" in params and "extra_row" not in kw:
+            kw["extra_row"] = params["extra_dims"][ev]
         bake_res = kw.pop("bake_resolution", 256)
         bake_mode = kw.pop("bake_mode", "nearest")
         if renderer != "live" and self._baked is None:
@@ -361,6 +388,11 @@ class Session:
         spp = max(int(spp), 1)
         acc = None
         for i in range(spp):
+            cam = start
+            if not np.allclose(start, end):
+                t = torch.tensor([(i + 0.5) / spp], dtype=torch.float32)
+                cam = camera_slerp(torch.from_numpy(start)[None], torch.from_numpy(end)[None],
+                                   t)[0].numpy()
             off = ld_pixel_offset(i) if spp > 1 else None
             phase = np.float32((i + 0.5) / spp) if spp > 1 else None
             if renderer == "sweep":
@@ -468,7 +500,10 @@ class Session:
             d6 = dfn(taps.reshape(-1, 3)).reshape(-1, 6)
             g = d6[:, :3] - d6[:, 3:]
             nrm = g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True), min=1e-9)
-            rgb_raw, _ = nerf_apply(net, params, unit, (nrm + 1.0) * 0.5)
+            ex = self.engine._render_extra(params)
+            if ex is not None:
+                ex = ex.expand(unit.shape[0], ex.shape[0])
+            rgb_raw, _ = nerf_apply(net, params, unit, (nrm + 1.0) * 0.5, extra=ex)
             rgb = apply_rgb_activation(rgb_raw, net.rgb_activation)
             return torch.cat([rgb, -nrm], dim=-1)  # colours, outward normals
         return color_fn
@@ -518,8 +553,9 @@ def _single_network_engine(mode: TestbedMode, scene: Path, cfg: dict, device, se
 def engine_from_snapshot(payload: dict, path, device):
     """The engine and state of a decoded native training snapshot ->
     (engine, state).  The engine is built from the snapshot's network config
-    and meta["aabb_scale"] (a one-cascade occupancy grid means 1); a table
-    or occupancy grid that does not fit it raises."""
+    and meta["aabb_scale"] (a one-cascade occupancy grid means 1), with the
+    extra dims and learners of the state's leaves; a table or occupancy
+    grid that does not fit it raises."""
     meta = payload.get("meta", {})
     n_casc = int(np.asarray(payload["state"]["occ"]["bitfield"]).shape[0])
     if "aabb_scale" in meta:
@@ -529,13 +565,30 @@ def engine_from_snapshot(payload: dict, path, device):
     else:
         raise ValueError(f"{path}: the snapshot's meta has no aabb_scale and its occupancy "
                          f"grid has {n_casc} cascades; the scale cannot be told")
-    eng = NerfEngine.create(payload.get("config") or {}, NerfDataset.placeholder(aabb_scale),
+    extra = payload["state"]["params"].get("extra_dims")
+    ds = dataclasses.replace(NerfDataset.placeholder(aabb_scale), n_extra_learnable_dims=0
+                             if extra is None else int(np.asarray(extra).shape[1]))
+    eng = NerfEngine.create(payload.get("config") or {}, ds,
                             grid_size=int(np.asarray(payload["state"]["occ"]["bitfield"]).shape[1]),
                             device=device)
     state = train_state_from_jax(payload["state"], device)
     _check_state_fits(eng, state, path)
     _restore_trainer_meta(eng, meta)
+    _restore_learners(eng, state["params"])
     return eng, state
+
+
+def _restore_learners(eng: NerfEngine, params: dict) -> None:
+    """Turn on the engine's learners whose leaves a restored state holds."""
+    for leaf, flag in (("cam", "optimize_extrinsics"), ("focal", "optimize_focal"),
+                       ("exposure", "optimize_exposure"), ("envmap", "train_envmap")):
+        if leaf in params:
+            setattr(eng, flag, True)
+    if "distortion" in params:
+        eng.optimize_distortion = True
+        eng.distortion_resolution = int(params["distortion"].shape[0])
+    if "envmap" in params:
+        eng.envmap_resolution = tuple(int(x) for x in params["envmap"].shape[:2])
 
 
 def _restore_trainer_meta(eng: NerfEngine, meta: dict) -> None:

@@ -166,15 +166,29 @@ def test_render_rays_baked_with_t_cap():
 
 
 def test_extra_dims_raise_naming_their_slice():
+    """Ported since: the colour MLP takes the params' render row of extra
+    dims between the SH block and the features, the reference's concat
+    (tests/test_torch_extra_dims.py holds conditioned frames to the
+    reference); with zero weights on those rows the colours are the fox's."""
     import dataclasses
 
     from sienerf_torch.engines.nerf_baked import _colors_from_raw
 
     s = fox_port_session()
-    eng = dataclasses.replace(s.engine, net=dataclasses.replace(s.engine.net, n_extra_dims=2))
-    with pytest.raises(NotImplementedError, match="C2b"):
-        _colors_from_raw(eng, s.render_params(), torch.zeros((4, 16)), torch.ones((2, 3)),
-                         (2, 2), torch.ones((2, 2), dtype=torch.bool))
+    net = s.engine.net
+    eng = dataclasses.replace(s.engine, net=dataclasses.replace(
+        net, n_extra_dims=2, rgb_mlp=dataclasses.replace(
+            net.rgb_mlp, n_input_dims=net.rgb_mlp.n_input_dims + 2)))
+    p = s.render_params()
+    w0 = p["rgb_mlp"][0]
+    wide = dict(p, extra_dims=torch.rand((3, 2)),
+                rgb_mlp=[torch.cat([w0[:16], torch.zeros((2, w0.shape[1])), w0[16:]])]
+                + list(p["rgb_mlp"][1:]))
+    raw, d = torch.rand((4, 16)), torch.ones((2, 3))
+    valid = torch.ones((2, 2), dtype=torch.bool)
+    got = _colors_from_raw(eng, wide, raw, d, (2, 2), valid)
+    want = _colors_from_raw(s.engine, p, raw, d, (2, 2), valid)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _flush_before(self, s, s2, n, rays_pre, render_mode=None):

@@ -73,15 +73,34 @@ def test_load_nerf_dataset_equals_the_reference(tmp_path):
 
 
 def test_loader_refuses_depth_images(tmp_path):
+    """Ported since: depth images load in NGP units (the stored value times
+    integer_depth_scale times the scene scale), 16-bit PNG equal to the
+    reference's (which reads them with OpenCV), EXR through the port's
+    codec; views without one read 0."""
+    from sienerf_torch.io.exr import write_exr
     from sienerf_torch.io.nerf_dataset import load_nerf_dataset
+    from sienerf_tpu.io.nerf_dataset import load_nerf_dataset as jload
 
-    root = _write_scene(tmp_path, np.random.default_rng(1))
+    rng = np.random.default_rng(1)
+    root = _write_scene(tmp_path, rng)
     meta = json.loads((root / "transforms.json").read_text())
-    cv2.imwrite(str(root / "depth_0.png"), np.zeros((H, W), np.uint16))
+    depth = rng.integers(0, 65536, (H, W), dtype=np.uint16)
+    cv2.imwrite(str(root / "depth_0.png"), depth)
     meta["frames"][0]["depth_path"] = "depth_0.png"
+    meta["integer_depth_scale"] = 1e-3
     (root / "transforms.json").write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match="Slice C2"):
-        load_nerf_dataset(root)
+    got, want = load_nerf_dataset(root), jload(root)
+    assert got.depths.dtype == np.float32
+    np.testing.assert_array_equal(got.depths, want.depths)
+    np.testing.assert_allclose(got.depths[0], depth * np.float32(1e-3 * 0.4), rtol=1e-6)
+    assert (got.depths[1:] == 0.0).all()
+    exr = rng.random((H, W, 3), np.float32)
+    write_exr(root / "depth_1.exr", exr, half=False)
+    meta["frames"][1]["depth_path"] = "depth_1.exr"
+    (root / "transforms.json").write_text(json.dumps(meta))
+    got = load_nerf_dataset(root)
+    np.testing.assert_allclose(got.depths[1], exr[..., 2] * np.float32(1e-3 * 0.4),
+                               rtol=1e-6)  # OpenCV's first channel is blue
 
 
 def test_load_image_matches_and_refuses_exr(tmp_path):

@@ -787,3 +787,128 @@ def test_takikawa_backward_is_bit_equal_across_runs(cuda):
         grads.append((feats.grad, pos.grad))
     assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
     assert float(grads[0][0].abs().max()) > 0
+
+
+def _learner_engine(device, n_extra=2):
+    """_train_engine's scene with every learner on: cameras, focal,
+    exposure, a 16x16 distortion map, latent codes, an 8x16 envmap, depth
+    supervision, the near-density regulariser and rolling shutter."""
+    import dataclasses
+
+    from sienerf_torch.engines.nerf import NerfEngine
+    from sienerf_torch.io.nerf_dataset import NerfDataset
+
+    base = _train_engine("cpu")
+    rng = np.random.default_rng(1)
+    ds = NerfDataset(images=base.images, xforms=base.xforms, focal_lengths=base.focals,
+                     principal_points=base.principal_points, resolution=base.resolution,
+                     aabb_scale=1.0, depths=rng.uniform(0.5, 1.5, (4, 32, 32)).astype(
+                         np.float32),
+                     rolling_shutter=np.asarray([0.1, 0.2, 0.3, 0.25], np.float32),
+                     xforms_end=(base.xforms + rng.normal(0, 0.01, base.xforms.shape)).astype(
+                         np.float32),
+                     envmap=rng.uniform(0, 1, (8, 16, 4)).astype(np.float32),
+                     n_extra_learnable_dims=n_extra)
+    cfg = {"encoding": {"otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2,
+                        "log2_hashmap_size": 12, "base_resolution": 8},
+           "network": {"n_neurons": 16, "n_hidden_layers": 1},
+           "rgb_network": {"n_neurons": 16, "n_hidden_layers": 1},
+           "optimizer": {"otype": "Ema", "decay": 0.95,
+                         "nested": {"otype": "Adam", "learning_rate": 1e-2, "l2_reg": 1e-6}}}
+    eng = NerfEngine.create(cfg, ds, train_batch_size=1 << 12, grid_size=32, train_k=16,
+                            near_density_reg=0.1, device=device)
+    return dataclasses.replace(eng, optimize_extrinsics=True, optimize_focal=True,
+                               optimize_exposure=True, optimize_distortion=True,
+                               distortion_resolution=16, depth_supervision_lambda=0.5)
+
+
+@pytest.mark.cuda
+def test_learner_training_step_is_deterministic(cuda):
+    """Every learner on: two gradient evaluations of one batch and two
+    bundles from one state and seed are bit-equal (the learners' sums run
+    through ops/fixed_order.py::take_rows)."""
+    from sienerf_torch.ops.optim import tree_leaves
+
+    eng = _learner_engine(cuda)
+    state, _, _ = eng.train_bundle(eng.init(0), torch.Generator(device=cuda).manual_seed(1))
+    n_rays, k, iters = eng._phase_geometry()
+    draws = eng.draw_step(torch.Generator(device=cuda).manual_seed(2), n_rays, state["step"])
+    assert "shutter" in draws
+    a = eng.loss_and_grads(state, draws, k, iters)
+    b = eng.loss_and_grads(state, draws, k, iters)
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a[1]), tree_leaves(b[1])))
+    for leaf in ("cam", "focal", "exposure", "distortion", "extra_dims", "envmap"):
+        assert float(a[1][leaf].abs().max()) > 0, leaf
+    mean = eng._mean_samples
+    runs = []
+    for _ in range(2):
+        eng._mean_samples = mean
+        st, loss, _ = eng.train_bundle(state, torch.Generator(device=cuda).manual_seed(3))
+        runs.append((loss, tree_leaves(st["params"]) + tree_leaves(st["opt"]), st["occ"]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in zip(runs[0][1], runs[1][1]))
+    assert torch.equal(runs[0][2]["density"], runs[1][2]["density"])
+
+
+def _conditioned_bake(cuda):
+    """A seeded field with 16 latent codes a view (K1 does not take it) on
+    a full occupancy grid, and its R=32 bake."""
+    import dataclasses
+
+    eng = _learner_engine(cuda, n_extra=16)
+    eng = dataclasses.replace(eng, render_table_pack="none")
+    state = eng.init(0)
+    occ = {"bitfield": torch.ones_like(state["occ"]["bitfield"]),
+           "mean_density": torch.tensor(0.01, device=cuda)}
+    state["params"]["density_mlp"][-1] = state["params"]["density_mlp"][-1] * 40.0
+    grid, meta = eng.bake_features(state["params"], occ, resolution=32)
+    return eng, state, occ, grid, meta
+
+
+@pytest.mark.cuda
+def test_the_extra_dims_route_launches_k2_not_k1(cuda):
+    """A conditioned field: the sweep frame shades with the plain shade
+    (view 0's code) and composites with K2, the JAX package's route."""
+    from sienerf_torch.engines.nerf_sweep import _fused_prep_eligible, render_frame_sweep
+    from sienerf_torch.utils.camera import look_at_matrix
+
+    eng, state, _, grid, meta = _conditioned_bake(cuda)
+    assert eng.net.n_extra_dims == 16 and eng.net.rgb_mlp.n_input_dims == 48
+    assert not _fused_prep_eligible(eng, grid)
+    cam = look_at_matrix([0.5, 0.5, -1.6], [0.5, 0.5, 0.5])
+    n0 = (shade_volume.launches, sweep_composite_kernel.launches)
+    rgba, _ = render_frame_sweep(eng, state["params"], grid, meta, cam, (60.0, 60.0),
+                                 width=64, height=48)
+    torch.cuda.synchronize()
+    assert (shade_volume.launches, sweep_composite_kernel.launches) == (n0[0], n0[1] + 1)
+    want, _ = render_frame_sweep(eng, state["params"], grid, meta, cam, (60.0, 60.0),
+                                 width=64, height=48, impl="plain")
+    torch.testing.assert_close(rgba, want, rtol=2e-2, atol=5e-3)
+    assert float(rgba[..., 3].mean()) > 0.05
+
+
+@pytest.mark.cuda
+def test_conditioned_baked_frame_through_g2_equals_plain(cuda):
+    """A conditioned field's baked frame through G2 equals the frame with
+    the plain gathers bit for bit, with view 0's code and with view 3's."""
+    from sienerf_torch.engines.nerf_baked import render_frame_baked
+    from sienerf_torch.utils.camera import look_at_matrix
+
+    eng, state, occ, grid, meta = _conditioned_bake(cuda)
+    cam = look_at_matrix([2.1, 0.5, 0.6], [0.5, 0.5, 0.5])
+    kw = dict(width=96, height=64, resolution=32, mode="nearest",
+              n_cascades=meta["n_cascades"])
+    frames = []
+    for row in (None, state["params"]["extra_dims"][3]):
+        n0 = gather_small.launches
+        a, _ = render_frame_baked(eng, state["params"], occ["bitfield"], grid, cam,
+                                  (70.0, 70.0), extra_row=row, **kw)
+        n1 = gather_small.launches
+        b, _ = render_frame_baked(eng, state["params"], occ["bitfield"], grid, cam,
+                                  (70.0, 70.0), extra_row=row, impl="plain", **kw)
+        assert n1 > n0 and gather_small.launches == n1
+        assert torch.equal(a, b) and float(a[..., 3].mean()) > 0.05
+        frames.append(a)
+    assert not torch.equal(frames[0], frames[1])

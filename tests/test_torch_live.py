@@ -325,8 +325,12 @@ def test_unported_parts_raise(what):
     _, _, teng, tp, bf = tiny()
     frame = functools.partial(teng.render_frame, tp, torch.from_numpy(bf), 8, 8, _cam(), FOCAL)
     if what == "distortion":
-        with pytest.raises(NotImplementedError):
-            frame(render_mode=what)
+        # ported: a colour wheel of each pixel's uv shift, black for a
+        # pinhole without a distortion map (tests/test_torch_lenses.py holds
+        # it to the reference)
+        rgba, depth = frame(render_mode=what)
+        assert rgba.shape == (8, 8, 4) and float(rgba[..., :3].abs().max()) < 1e-4
+        assert bool((depth == 1.0).all())
     elif what == "normals":
         # ported with the hash grid's position gradient; held to the
         # reference in tests/test_torch_normals.py
@@ -343,9 +347,21 @@ def test_unported_parts_raise(what):
 
         from sienerf_torch.models.nerf_network import nerf_apply
 
-        net = dataclasses.replace(teng.net, n_extra_dims=4)
-        with pytest.raises(NotImplementedError):
-            nerf_apply(net, tp, torch.zeros((4, 3)), torch.zeros((4, 3)))
+        # ported: extra dims go between the SH block and the geo features;
+        # with zero weights on their rows they change nothing
+        # (tests/test_torch_extra_dims.py holds them to the reference)
+        net = dataclasses.replace(
+            teng.net, n_extra_dims=4,
+            rgb_mlp=dataclasses.replace(teng.net.rgb_mlp,
+                                        n_input_dims=teng.net.rgb_mlp.n_input_dims + 4))
+        w0 = tp["rgb_mlp"][0]
+        wide = dict(tp, rgb_mlp=[torch.cat([w0[:16], torch.zeros((4, w0.shape[1])), w0[16:]])]
+                    + list(tp["rgb_mlp"][1:]))
+        pos, dirw = torch.rand((64, 3)), torch.rand((64, 3))
+        plain = nerf_apply(teng.net, tp, pos, dirw)
+        for extra in (None, torch.rand((64, 4))):
+            got = nerf_apply(net, wide, pos, dirw, extra=extra)
+            assert all(torch.equal(a, b) for a, b in zip(got, plain))
     elif what == "bake_render_grid":
         # ported: held to the reference in tests/test_torch_fine_grid.py
         fine = teng.bake_render_grid(tp, {"bitfield": torch.from_numpy(bf),

@@ -1,8 +1,8 @@
 """Repairs of the port's earlier slices, each shown by a test:
 
 1. `near_density_reg` and `near_reg_fraction` reach the engine: through
-   Session.load_file and NerfEngine.create they reach the raise of the
-   not yet ported regulariser.
+   Session.load_file and NerfEngine.create (the regulariser itself trains
+   since, tests/test_torch_learners.py).
 2. Session.render defaults to the live renderer, as the reference's does.
 3. The trainer's sums run in a fixed order (ops/fixed_order.py): the hash
    grid's backward sorts every level's contributions by row and sums each
@@ -56,9 +56,12 @@ def test_load_file_passes_the_near_density_options_on(tmp_path, kw):
     scene = tmp_path / "scene"
     scene.mkdir()
     _write_scene(scene, np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match="near-density"):
-        Session(device="cpu").load_file(scene, network=_small_network(tmp_path),
+    # the regulariser is ported since (tests/test_torch_learners.py): the
+    # options reach the engine that trains with them
+    s = Session(device="cpu").load_file(scene, network=_small_network(tmp_path),
                                         grid_size=16, **kw)
+    assert s.engine.near_density_reg == kw["near_density_reg"]
+    assert s.engine.near_reg_fraction == kw.get("near_reg_fraction", 0.25)
 
 
 def test_create_keeps_the_near_reg_fraction():

@@ -4,7 +4,8 @@ x 2 features, 2^12 rows, MLPs 16 wide, a 32^3 grid, 2^12-sample batches):
 compact_samples, composite_flat, the occupancy update (dense and sparse),
 mark_untrained_cells, the error map, one full training step from the
 reference's own state and draws, a short training run of the port alone,
-and the error paths of the parts left to Slice C2.
+and each optional learner and dataset field of Slice C2b training a step
+(tests/test_torch_learners.py holds them to the reference).
 
 The reference state comes from two of its own bundles; the port takes it
 through convert.train_state_from_jax and the reference's draws (ray
@@ -427,16 +428,34 @@ def test_cell_center_and_camera_conversions_match():
                                         ("rolling_shutter", np.zeros(4, np.float32)),
                                         ("compact_training", False)])
 def test_slice_c2_options_raise(flag, value):
+    """Each learner and loss term of Slice C2b, once raising, trains a step
+    from the trained state: its leaf is made and moves, the loss is
+    finite."""
     import dataclasses
 
-    eng = trained()[3]
-    with pytest.raises(NotImplementedError, match="Slice C2"):
-        dataclasses.replace(eng, **{flag: value}).train_bundle(trained()[4],
-                                                               torch.Generator())
+    eng = dataclasses.replace(trained()[3], **{flag: value})
+    state = dict(trained()[4])
+    fresh = eng.init(0)
+    leaf = {"optimize_extrinsics": "cam", "optimize_focal": "focal",
+            "optimize_exposure": "exposure", "optimize_distortion": "distortion"}.get(flag)
+    if leaf:
+        state["params"] = dict(state["params"], **{leaf: fresh["params"][leaf]})
+        state["opt"] = {**state["opt"], **{k: dict(state["opt"][k], **{leaf: fresh["opt"][k][leaf]})
+                                          for k in ("m", "v", "ema")}}
+    n_rays, k, iters = eng._phase_geometry()
+    draws = eng.draw_step(torch.Generator().manual_seed(0), n_rays, int(state["step"]))
+    new, loss, cnt = eng.train_step(state, draws, k, iters)
+    assert np.isfinite(float(loss)) and float(cnt) > 0
+    if leaf:
+        assert not torch.equal(new["params"][leaf], state["params"][leaf])
 
 
 @pytest.mark.parametrize("field", ["light_dirs", "envmap", "xforms_end", "depths"])
 def test_slice_c2_dataset_fields_raise(field):
+    """Each dataset field of Slice C2b, once raising, reaches the engine:
+    light directions widen the colour MLP by 3 fixed dims, an envmap
+    turns on the trainable envmap, end cameras rolling shutter, depth
+    images depth supervision's target."""
     import dataclasses
 
     from sienerf_torch.engines.nerf import NerfEngine
@@ -445,6 +464,15 @@ def test_slice_c2_dataset_fields_raise(field):
     value = {"light_dirs": np.zeros((ds.n_images, 3), np.float32),
              "envmap": np.zeros((4, 8, 4), np.float32),
              "xforms_end": ds.xforms, "depths": ds.images[..., 0]}[field]
-    with pytest.raises(NotImplementedError, match="Slice C2"):
-        NerfEngine.create(small_config(), dataclasses.replace(ds, **{field: value}),
-                          device="cpu")
+    eng = NerfEngine.create(small_config(), dataclasses.replace(ds, **{field: value}),
+                            grid_size=G, device="cpu")
+    params = eng.init(0)["params"]
+    if field == "light_dirs":
+        assert eng.net.n_extra_dims == 3 and not eng.optimize_extra_dims
+        assert torch.equal(params["extra_dims"], torch.full((ds.n_images, 3), 0.5))
+    elif field == "envmap":
+        assert eng.train_envmap and params["envmap"].shape == (4, 8, 4)
+    elif field == "xforms_end":
+        assert eng.rolling_shutter is not None and "xforms_end" in eng.data
+    else:
+        assert torch.equal(eng.data["depths"], torch.from_numpy(ds.images[..., 0]))
