@@ -16,7 +16,7 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
 - the live path: Session.render(renderer="live"), the streaming
   ray-marched renderer, at 1280x720 (the timed and the phase-synchronised
   frames at tile 2^17; a 320x180 frame at tiles 2^14 and 2^17 for its tile
-  independence), a 160x90 frame of it against the same code on the CPU, and the sweep frames' PSNR and SSIM
+  independence), an 80x45 frame of it against the same code on the CPU, and the sweep frames' PSNR and SSIM
   against the live frames;
 - the training path: 55 teacher views of the fox field rendered through
   the sweep (K1, K2) at 1280x720 make an in-memory dataset (50 to train, 5
@@ -68,9 +68,11 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
 - every NeRF configuration and the rest of the port's paths: `[configs]`
   each configs/nerf/*.json at full width from a seeded init on the fox's
   occupancy (an R=128 bake, a 320x180 sweep frame through K1 and K2 against
-  the plain frame, K1 against plain on its rows; K1 on the fox's R=256 rows
-  with the colour MLPs of big.json and base_0layer.json, timed beside its
-  bound), `[takikawa]` configs/sdf/takikawa.json on the [sdf] mesh (the
+  the plain frame, K1 against plain on its rows; K1's general path on the
+  fox's R=256 rows with one config of each general colour-MLP shape and
+  the widest four-layer net it takes, timed beside its bound, and on the
+  fox's own 32-64-64-3 beside the tuned path, after a probe of one tile
+  through both paths' tensor-core instructions), `[takikawa]` configs/sdf/takikawa.json on the [sdf] mesh (the
   octree at depth 10, steps, IoU, one step against the CPU, a 720p frame),
   `[fine]` the trained student's fine render grid, the 640x360 live frame
   with and without it, and an 80x45 frame through it against the CPU,
@@ -89,7 +91,7 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   engine B's through the plain shade and K2 (K1 never launches), K2 held
   to plain, its baked frames through G2 with view 0's and view 3's code,
   a small live frame against the CPU; the five non-pinhole lenses' 720p
-  rays against the CPU, a 720p live frame through the OpenCV lens, a
+  rays against the CPU, a 640x360 live frame through the OpenCV lens, a
   distortion-mode frame, a motion-blurred Session.render against the CPU;
   and the two-phase trainer's deep bundle, its switch and a step held to
   the CPU.
@@ -109,6 +111,7 @@ CUDA device, or outside a checkout of the repo.  The last line of stdout is
 from __future__ import annotations
 
 import dataclasses
+import re
 import json
 import math
 import os
@@ -130,7 +133,7 @@ EYES = ([2.1, 0.5, 0.6], [0.4, -1.3, 0.5], [0.5, 0.5, -1.6])
 K1_TOL = dict(rtol=2e-2, atol=2e-3)   # the reference's shade-kernel test
 K2_TOL = dict(rtol=1e-4, atol=2e-4)   # the reference's sweep-kernel test
 FRAME_TOL = dict(rtol=2e-2, atol=5e-3)
-LIVE_SMALL = (160, 90)  # the live frame that is held to the CPU run
+LIVE_SMALL = (80, 45)  # the live frame that is held to the CPU run
 # pixels of that frame that may leave FRAME_TOL: exp2 / log2 / exp differ in
 # the last bit between the card and the CPU, which can move one sample of a
 # ray across a voxel boundary
@@ -215,7 +218,7 @@ TRILINEAR_MIN_DB, TRILINEAR_RES = 35.0, 128
 HYBRID_NERF_CENTERS = ([0.0, 0.0, 0.0], [-0.15, 0.3, 0.2])
 HYBRID_BAKED_TILE, HYBRID_BAKED_TIMED = 1 << 18, 1
 HYBRID_BAKED_SMALL = (160, 90)  # its frame against the live hybrid
-GATHER_REPS = 5  # the gather probe's bursts a shape
+GATHER_REPS = 3  # the gather probe's bursts a shape
 K2_FLOPS_PER_SAMPLE = 30  # affine map, texel select, alpha (one exp), carry
 # Slice F: the image, SDF and volume modes at their configs' full width and
 # mesh export, each input built in code (the reference's image, meshes and
@@ -234,10 +237,18 @@ VOLUME_RES, VOLUME_BUNDLES, VOLUME_SPP = 256, 8, 4
 VOLUME_EYE, VOLUME_FOCAL, VOLUME_SMALL = (0.5, 0.5, -1.5), 1600.0, (64, 36)
 MESH_RES, MESH_OPT_STEPS = 256, 3
 # every configs/nerf/*.json at full width from a seeded init on the fox's
-# occupancy: a bake at CONFIG_BAKE_RES and CONFIG_SMALL sweep frames; K1 timed
-# on the fox's R=256 rows with the widest and the shallowest colour MLPs
+# occupancy: a bake at CONFIG_BAKE_RES and CONFIG_SMALL sweep frames; K1's
+# general path timed on the fox's R=256 rows with one config of each of the
+# general colour-MLP shapes of configs/nerf/ (32-3, 32-64-3, 32-64x3-3,
+# 32-128x2-3), and with the widest four-layer net it takes, 32-128x4-3,
+# from seeded weights (no config has it: frequency.json's and none.json's
+# 128 x 4 is their density MLP, their colour MLP the fox's 32-64-64-3)
 CONFIG_BAKE_RES, CONFIG_SMALL = 128, (320, 180)
-CONFIG_TIMED = ("big", "base_0layer")
+CONFIG_TIMED = ("base_0layer", "small", "base_3layer", "big")
+K1_WIDEST = ((32, 128), (128, 128), (128, 128), (128, 128), (128, 3))
+# a colour MLP the general kernel cannot hold (above width 256): the wide
+# kernel's check on the fox's rows
+K1_WIDE = ((32, 512), (512, 3))
 # the Takikawa SDF (configs/sdf/takikawa.json) on the [sdf] phase's mesh;
 # the fine render grid; the PNG dataset of the [train] views
 TAKIKAWA_BUNDLES = 4
@@ -246,8 +257,7 @@ PNG_VIEWS, PNG_STEPS, PNG_COMPARE_DOWNSCALE = 10, 16, 2
 # the determinism checks' bundles: 4 steps each (every sum of a step runs
 # in each; 16 only repeat them)
 DETERMINISM_STEPS = 4
-# frames of the hybrid, baked and fine phases held to the CPU (the [live]
-# phase keeps LIVE_SMALL)
+# frames of the hybrid, baked and fine phases held to the CPU
 CPU_SMALL = (80, 45)
 # the trainer's learners (Slice C2b) on the [train] student at full width:
 # engine A (cameras, focal, exposure, a 32x32 distortion map, a 128x256
@@ -1712,13 +1722,19 @@ def mesh_phase(fox, sdf, tmp: Path) -> dict:
     return out
 
 
-def configs_phase(fox, rows, scale, n_live, dev, cuda_ms, general_ptxas) -> dict:
+def configs_phase(fox, rows, scale, n_live, dev, cuda_ms, general_ptxas: dict) -> dict:
     """Every configs/nerf/*.json at full width from a seeded init, with the
     fox's occupancy bitfield: a bake at CONFIG_BAKE_RES, a 320x180 sweep
     frame through K1 and K2 against the plain frame (each config's
     launches counted from 0), K1 against shade_volume_plain on the bake's
-    rows; then K1 on the fox's R=256 rows with the colour MLPs of
-    CONFIG_TIMED, timed, beside its bound."""
+    rows; then K1's general path on the fox's R=256 rows with the colour
+    MLPs of CONFIG_TIMED and K1_WIDEST, timed beside its bound and in turns
+    with the wide kernel (the general path's first kernel), on K1_WIDE
+    through the wide kernel, and on the
+    fox's own 32-64-64-3 beside the tuned path, after a probe of one tile
+    through both of their tensor-core instructions.  `general_ptxas` maps
+    (padded width, warps a block) of each general instance to ptxas's
+    report of it."""
     import numpy as np
     import torch
 
@@ -1729,7 +1745,10 @@ def configs_phase(fox, rows, scale, n_live, dev, cuda_ms, general_ptxas) -> dict
     from sienerf_torch.ops.mlp import mlp_layer_dims
     from sienerf_torch.ops.shade import (
         _shade_general,
+        _shade_wide,
         general_occupancy,
+        general_width,
+        mma_probe,
         shade_mlp_layout,
         shade_volume,
         shade_volume_plain,
@@ -1793,13 +1812,29 @@ def configs_phase(fox, rows, scale, n_live, dev, cuda_ms, general_ptxas) -> dict
     out["launches"] = {k: sum(c["launches"][k] for c in out["by_config"].values())
                        for k in ("shade", "sweep", "gather_rows", "gather_small")}
 
-    # K1 at the fox's R=256 bake with the widest and the shallowest colour MLP
+    # the two instructions of K1's paths on one tile: mma.sync (the tuned
+    # kernel) and wgmma (the general kernel) on the same bf16 inputs
+    gen = torch.Generator(device=dev).manual_seed(2)
+    differ, worst = 0, 0.0
+    for trial in range(8):
+        a = (torch.randn((64, 64), generator=gen, device=dev) * (1 + trial)).to(torch.bfloat16)
+        b = torch.randn((64, 64), generator=gen, device=dev).to(torch.bfloat16)
+        d_sync, d_wgmma = mma_probe(a, b)
+        torch.cuda.synchronize()
+        differ += int((d_sync.view(torch.int32) != d_wgmma.view(torch.int32)).sum())
+        worst = max(worst, float((d_sync - d_wgmma).abs().max()))
+    out["mma_probe"] = {"outputs": 8 * 64 * 64, "differ": differ, "largest": worst}
+    log(f"[configs] probe, one 64x64x64 bf16 product a trial through mma.sync and wgmma: "
+        f"{differ} of {8 * 64 * 64} f32 outputs differ in their bits (largest {worst:.3g})")
+
+    # K1's general path at the fox's R=256 bake
     R, K = BAKE_RES, scale.shape[0]
     Rv = R + 1
     o = torch.as_tensor(np.asarray(cam, np.float32)[:3, 3], device=dev)
     acts = dict(density_act=fox.engine.net.density_activation,
                 rgb_act=fox.engine.net.rgb_activation)
-    # the general path on the fox's own 32-64-64-3: the tuned path's bits
+    # the general path on the fox's own 32-64-64-3: the tuned path's bits,
+    # timed beside the tuned path in turns
     fws, fmlp = fox.state["params"]["rgb_mlp"], fox.engine.net.rgb_mlp
     kw = dict(resolution=R, n_cascades=K, rgb_mlp=fmlp, **acts)
     tuned = shade_volume(rows, scale, o, fws, **kw)
@@ -1808,48 +1843,95 @@ def configs_phase(fox, rows, scale, n_live, dev, cuda_ms, general_ptxas) -> dict
     out["fox_general_equal"] = bool(torch.equal(tuned.contiguous().view(torch.int16),
                                                 general.contiguous().view(torch.int16)))
     del tuned, general
-    out["fox_general_ms"] = statistics.median(
-        [cuda_ms(lambda: _shade_general(rows, scale, o, fws, **kw), 1, warmup=1)
-         for _ in range(10)])
+    fox_ms = {"general": [], "tuned": []}
+    for who in ("tuned", "general", "general", "tuned"):
+        fn = _shade_general if who == "general" else shade_volume
+        fox_ms[who] += [cuda_ms(lambda: fn(rows, scale, o, fws, **kw), 1, warmup=1)
+                        for _ in range(5)]
+    out["fox_general_ms"] = statistics.median(fox_ms["general"])
+    out["fox_tuned_ms"] = statistics.median(fox_ms["tuned"])
     log(f"[configs] K1's general path on the fox's 32-64-64-3 at R={R}: bit-equal to the "
-        f"tuned path {out['fox_general_equal']}, {out['fox_general_ms']:.3f} ms (median of ten)")
+        f"tuned path {out['fox_general_equal']}, {out['fox_general_ms']:.3f} ms against the "
+        f"tuned path's {out['fox_tuned_ms']:.3f} ms (medians of ten, in turns)")
     check(out["fox_general_equal"], "[configs] the general path differs from the tuned one")
     out["timed"] = {}
-    for name in CONFIG_TIMED:
-        ws, mlp = weights[name]
+    rng = np.random.default_rng(0)
+    widest = [torch.from_numpy(rng.normal(0, 1 / np.sqrt(a), (a, b)).astype(np.float32)).to(dev)
+              for a, b in K1_WIDEST]
+    timed = [(name, *weights[name]) for name in CONFIG_TIMED]
+    timed.append(("32-128x4-3", widest, None))
+    for name, ws, mlp in timed:
         n_hidden, width = shade_mlp_layout([w.shape for w in ws])
         kw = dict(resolution=R, n_cascades=K, rgb_mlp=mlp, **acts)
         vol = shade_volume(rows, scale, o, ws, **kw)
         torch.cuda.synchronize()
-        err = compare(f"[configs] {name} K1 vs plain at the fox's R={R}", vol,
-                      shade_volume_plain(rows, scale, o, ws, **kw), **K1_TOL)
+        t = time.perf_counter()
+        want = shade_volume_plain(rows, scale, o, ws, **kw)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t)  # the one plain call the check needs
+        err = compare(f"[configs] {name} K1 vs plain at the fox's R={R}", vol, want, **K1_TOL)
         del vol
-        times = [cuda_ms(lambda: shade_volume(rows, scale, o, ws, **kw), 1, warmup=1)
-                 for _ in range(10)]
-        plain_ms = cuda_ms(lambda: shade_volume_plain(rows, scale, o, ws, **kw), 2, warmup=1)
+        wide = _shade_wide(rows, scale, o, ws, **kw)
+        torch.cuda.synchronize()
+        wide_err = compare(f"[configs] {name} K1's wide kernel vs plain at the fox's R={R}",
+                           wide, want, **K1_TOL)
+        del wide, want
+        # the general kernel and the wide one (the floor: the general path's
+        # first kernel) in turns, five timings each a turn
+        by = {"general": [], "wide": []}
+        for who in ("general", "wide", "wide", "general"):
+            fn = shade_volume if who == "general" else _shade_wide
+            by[who] += [cuda_ms(lambda: fn(rows, scale, o, ws, **kw), 1, warmup=1)
+                        for _ in range(5)]
+        times = by["general"]
         # bytes as the fox's K1 (a kept row 32 bytes, a culled one its
-        # sentinel, 8 bytes out a vertex); flops of the config's own MLP on
+        # sentinel, 8 bytes out a vertex); flops of the MLP's own layers on
         # this bake's kept vertices, as K1_FLOPS_PER_VERTEX counts the fox's
         # (not the kernel's padding of the 3 outputs to one n8 tile)
-        flops = 2 * sum(a * b for a, b in mlp_layer_dims(mlp))
+        flops = 2 * sum(w.shape[0] * w.shape[1] for w in ws)
         nbytes = (n_live * 32 + (rows.shape[0] - n_live) * 2 + K * Rv ** 3 * 8
                   + scale.numel() * 4 + 12 + sum(w.numel() for w in ws) * 2)
         tb, to = 1e3 * nbytes / HBM_BPS, 1e3 * n_live * flops / BF16_FLOPS
         warps, blocks, smem = general_occupancy(ws)
+        instance = general_width(width) if n_hidden else 32
+        ptxas = general_ptxas.get((instance, warps), "")
         out["timed"][name] = {
+            "rgb_mlp": [list(w.shape) for w in ws],
             "ms": statistics.median(times), "ms_range": (min(times), max(times)),
             "plain_ms": plain_ms, "max_abs_err": err, "bytes": nbytes,
             "flops_per_vertex": flops, "tflop": n_live * flops / 1e12,
             "bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations",
             "bytes_ms": tb, "flops_ms": to, "warps_a_block": warps, "blocks_an_sm": blocks,
-            "smem_bytes": smem, "ptxas": general_ptxas}
+            "smem_bytes": smem, "kernel_width": instance, "ptxas": ptxas,
+            "wide_ms": statistics.median(by["wide"]), "wide_max_abs_err": wide_err}
         log(f"[configs] K1 {name} ({n_hidden} hidden x {width}) on the fox's R={R} rows "
             f"({n_live} kept): {statistics.median(times):.3f} ms (ten timings "
             f"{min(times):.3f}-{max(times):.3f}; plain {plain_ms:.1f} ms); bound "
             f"{max(tb, to):.3f} ms ({'bytes' if tb >= to else 'operations'}: "
             f"{nbytes / 1e9:.3f} GB -> {tb:.3f} ms, {flops} flops a kept vertex, "
-            f"{n_live * flops / 1e12:.3f} TFLOP -> {to:.3f} ms); {warps} warps a block, "
-            f"{blocks} blocks an SM, {smem} bytes of shared memory; {general_ptxas}")
+            f"{n_live * flops / 1e12:.3f} TFLOP -> {to:.3f} ms; "
+            f"{100 * max(tb, to) / statistics.median(times):.1f} % of it); width-{instance} "
+            f"kernel, {warps} warps a block, {blocks} blocks an SM, {smem} bytes of shared "
+            f"memory; {ptxas}; the wide kernel in turns {statistics.median(by['wide']):.3f} "
+            f"ms")
+    # a net above width 256 takes the wide kernel
+    ws = [torch.from_numpy(rng.normal(0, 1 / np.sqrt(a), (a, b)).astype(np.float32)).to(dev)
+          for a, b in K1_WIDE]
+    kw = dict(resolution=R, n_cascades=K, **acts)
+    n0 = shade_volume.launches
+    vol = shade_volume(rows, scale, o, ws, **kw)
+    torch.cuda.synchronize()
+    check(shade_volume.launches == n0 + 1, "[configs] K1 32-512-3: not one launch")
+    err = compare(f"[configs] 32-512-3 K1 (wide kernel) vs plain at the fox's R={R}", vol,
+                  shade_volume_plain(rows, scale, o, ws, **kw), **K1_TOL)
+    del vol
+    ms = statistics.median([cuda_ms(lambda: shade_volume(rows, scale, o, ws, **kw), 1,
+                                    warmup=1) for _ in range(5)])
+    warps, blocks, smem = general_occupancy(ws)
+    out["wide"] = {"rgb_mlp": [list(w.shape) for w in ws], "ms": ms, "max_abs_err": err,
+                   "warps_a_block": warps, "blocks_an_sm": blocks, "smem_bytes": smem}
+    log(f"[configs] K1 32-512-3 on the fox's R={R} rows through the wide kernel: {ms:.3f} ms, "
+        f"{warps} warps a block, {blocks} blocks an SM, {smem} bytes of shared memory")
     return out
 
 
@@ -2453,21 +2535,24 @@ def learners_phase(sess, tr, dev, cuda_ms) -> dict:
                                   for nm, a, b in zip(("C", "opacity", "T", "depth_t"), got, want))
     out["B_k2_ms"] = cuda_ms(lambda: sweep_composite_kernel(*args, **kw), 10)
     del vol, args, got, want, frame, plain_frame
-    # the baked frames through G2, view 0's code and then view 3's
+    # the baked frames through G2, view 0's code and then view 3's, at
+    # 640x360 to keep the script inside its limit
+    bw, bh = FINE_FRAME
+    bfocal = tuple(f * bw / WIDTH for f in FOCAL)
     frames = {}
     for view in (0, 3):
         sB.rendering_extra_dims_from_training_view = view
         t = time.perf_counter()
         frames[view], launches[f"B_baked_view{view}"] = counted(
-            lambda: sB.render(WIDTH, HEIGHT, cam, FOCAL, renderer="baked"))
+            lambda: sB.render(bw, bh, cam, bfocal, renderer="baked"))
         out[f"B_baked_view{view}_ms"] = 1e3 * (time.perf_counter() - t)
         n_g2 = launches[f"B_baked_view{view}"]["gather_small"]
         check(n_g2 > 0 and launches[f"B_baked_view{view}"]["shade"] == 0,
               f"[learners] engine B's baked frame: launches {launches[f'B_baked_view{view}']}")
-        log(f"[learners] engine B baked frame {WIDTH}x{HEIGHT}, view {view}'s code: "
+        log(f"[learners] engine B baked frame {bw}x{bh}, view {view}'s code: "
             f"{out[f'B_baked_view{view}_ms']:.1f} ms, {n_g2} G2 launches")
     # the frame of another view's code against the plain gathers
-    plain_frame = sB.render(WIDTH, HEIGHT, cam, FOCAL, renderer="baked", impl="plain")
+    plain_frame = sB.render(bw, bh, cam, bfocal, renderer="baked", impl="plain")
     check(torch.equal(frames[3], plain_frame),
           "[learners] engine B's baked frame (view 3's code) differs from plain")
     log("[learners] engine B's view-3 baked frame equals the plain frame (tolerance 0)")
@@ -2506,13 +2591,14 @@ def learners_phase(sess, tr, dev, cuda_ms) -> dict:
     engL = dataclasses.replace(eng0, lens=Lens(LensMode.OPENCV, LENS_PARAMS["opencv"]))
     torch.cuda.synchronize()
     t = time.perf_counter()
-    lf = engL.render_frame(ema, state0["occ"]["bitfield"], WIDTH, HEIGHT, cam, FOCAL,
-                           tile=LIVE_BIG_TILE)[0]
+    lw, lh = FINE_FRAME  # cut from 1280x720 to keep the script inside its limit
+    lf = engL.render_frame(ema, state0["occ"]["bitfield"], lw, lh, cam,
+                           tuple(f * lw / WIDTH for f in FOCAL), tile=LIVE_BIG_TILE)[0]
     torch.cuda.synchronize()
     out["opencv_live_ms"] = 1e3 * (time.perf_counter() - t)
     check(bool(torch.isfinite(lf).all()) and float(lf[..., 3].mean()) > 0.05,
           "[learners] the OpenCV-lens live frame is empty")
-    log(f"[learners] {WIDTH}x{HEIGHT} live frame through the OpenCV lens: "
+    log(f"[learners] {lw}x{lh} live frame through the OpenCV lens: "
         f"{out['opencv_live_ms']:.1f} ms (tile 2^17), mean alpha {float(lf[..., 3].mean()):.3f}")
     pA1 = stateA1["params"]
     dist_card = engA.render_frame(pA1, stateA1["occ"]["bitfield"], WIDTH, HEIGHT, cam, FOCAL,
@@ -2630,16 +2716,21 @@ def main() -> int:
     t = time.time()
     reports = cuda_lib.build(cuda_lib.KERNEL_SOURCES, force=True)
     log(f"[build] {', '.join(cuda_lib.KERNEL_SOURCES)} in {time.time() - t:.1f} s")
-    general_ptxas = ""
+    general_ptxas = {}  # (padded width, warps a block) of a general instance -> ptxas's lines
     for name, rep in reports.items():
         entry = ""
         for line in rep.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
+                log(f"  {name}: {entry}")
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-                if "shade_general_kernel" in entry:
-                    general_ptxas += line.strip().removeprefix("ptxas info    : ") + "; "
+                args = re.search(r"shade_general_kernelILi(\d+)ELi(\d+)ELi(\d+)E", entry)
+                if args:
+                    w, ncons, p = (int(a) for a in args.groups())
+                    key = (w, 4 * ncons + p)
+                    general_ptxas[key] = (general_ptxas.get(key, "") + line.strip()
+                                          .removeprefix("ptxas info    : ") + "; ")
     k1_blocks, k1_threads = kernel_occupancy()
     log(f"  shade: {k1_blocks} blocks of {k1_threads} threads "
         f"({k1_blocks * k1_threads // 32} warps) fit an SM")
@@ -2884,7 +2975,7 @@ def main() -> int:
     else:
         log("[live] device busy share: not measured (the trace holds no device time)")
 
-    # the same port code on the CPU, at 160x90
+    # the same port code on the CPU, at LIVE_SMALL
     sw, sh = LIVE_SMALL
     focal_s = tuple(f * sw / WIDTH for f in FOCAL)
     small = sess.render(sw, sh, cams[0], focal_s, renderer="live")
@@ -2987,7 +3078,7 @@ def main() -> int:
     del vol, view, frames, big, small, small_cpu
     torch.cuda.empty_cache()
     t = time.time()
-    cf = configs_phase(sess, rows, scale, n_live, dev, cuda_ms, general_ptxas.strip())
+    cf = configs_phase(sess, rows, scale, n_live, dev, cuda_ms, general_ptxas)
     cf["phase_s"] = time.time() - t
     log(f"[configs] phase in {cf['phase_s']:.1f} s: {len(cf['by_config'])} configs, launches "
         f"{cf['launches']}, K1 max abs err {cf['k1_max_abs_err']:.3g}")
@@ -3090,7 +3181,8 @@ def main() -> int:
          "max_abs_err_hybrid": hy["k1_err"],
          "launches_configs_path": cf["launches"]["shade"],
          "max_abs_err_configs": {k: v["k1_max_abs_err"] for k, v in cf["by_config"].items()},
-         "configs_timed": cf["timed"], "launches_triplane_path": tp["launches"]["shade"],
+         "configs_timed": cf["timed"], "configs_wide": cf["wide"],
+         "launches_triplane_path": tp["launches"]["shade"],
          "max_abs_err_triplane": tp["k1_max_abs_err"],
          "launches_learners_path": ln["launches_by_kernel"]["shade"],
          "max_abs_err_learners_frame": ln["A_frame_max_abs_err"]},

@@ -116,14 +116,16 @@ def nearest_vertex_ids(resolution: int, n_cascades: int, pos: torch.Tensor):
 
 
 def _max_pool(x: torch.Tensor, kernel: int, stride: int, pad: int) -> torch.Tensor:
-    """Max-pool of a (K, X, Y, Z) 0/1 lattice with the same window on each
-    axis, one axis at a time (a separable max equals the 3-D window's)."""
-    v = x.to(torch.float32)[:, None]
-    for ks, st, pd in (((kernel, 1, 1), (stride, 1, 1), (pad, 0, 0)),
-                       ((1, kernel, 1), (1, stride, 1), (0, pad, 0)),
-                       ((1, 1, kernel), (1, 1, stride), (0, 0, pad))):
-        v = F.max_pool3d(v, ks, st, pd)
-    return v[:, 0]
+    """Max-pool of a (K, X, Y, Z) lattice with the same window on each axis
+    (padding never wins), one axis at a time: a separable max equals the
+    3-D window's, and each axis is one reduction over an unfolded view
+    (several times faster on the CPU than max_pool3d, the same values)."""
+    v = x.to(torch.float32)
+    if pad:
+        v = F.pad(v, (pad,) * 6, value=float("-inf"))
+    for axis in (1, 2, 3):
+        v = v.unfold(axis, kernel, stride).amax(-1)
+    return v
 
 
 def _lattice(live_flat: torch.Tensor, resolution: int, n_cascades: int) -> torch.Tensor:

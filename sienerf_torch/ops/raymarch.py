@@ -31,8 +31,37 @@ from sienerf_torch.ops.occupancy import (
 )
 
 
-# iterations between the scalar march's checks for rays still marching
-_DONE_CHECK = 64
+# iterations between a march's checks for rays still marching.  A check is
+# a host sync on the card, where only the one-candidate march looks (every
+# _DONE_CHECK iterations); on the CPU it costs next to nothing, every march
+# looks every _DONE_CHECK_CPU, and each iteration saved is a full one
+_DONE_CHECK, _DONE_CHECK_CPU = 64, 4
+
+
+def _check_every(t: torch.Tensor, on_card: int) -> int:
+    """Iterations between a march's checks: `on_card` (0: none) on the card."""
+    return _DONE_CHECK_CPU if t.device.type == "cpu" else on_card
+
+
+def _slot_iota(K: int, dev: torch.device):
+    """arange(K)[None] for _writer on the card; None on the CPU."""
+    return None if dev.type == "cpu" else torch.arange(K, device=dev)[None, :]
+
+
+def _writer(iota_K, K: int, k: torch.Tensor, emit: torch.Tensor):
+    """write(slab, value) -> slab with slab[r, k[r]] = value[r] where
+    emit[r] (k[r] < K there), for (N, K) slabs.  On the card (iota_K from
+    _slot_iota) one pass over the slab; on the CPU (iota_K None) in place,
+    one element a ray, several times faster there."""
+    if iota_K is not None:
+        mask = (iota_K == k[:, None]) & emit[:, None]
+        return lambda slab, value: torch.where(mask, value[:, None], slab)
+    slot = torch.clamp(k, max=K - 1)[:, None]
+
+    def write(slab, value):
+        keep = slab.gather(1, slot)[:, 0]
+        return slab.scatter_(1, slot, torch.where(emit, value, keep)[:, None])
+    return write
 
 
 def calc_dt(t: torch.Tensor, cone_angle: float) -> torch.Tensor:
@@ -113,7 +142,7 @@ def march_rays(config: MarchConfig, bitfield: torch.Tensor, origins: torch.Tenso
         raise ValueError("span marching does not support the fine render grid")
     N, K, S = origins.shape[0], n_samples, span
     dev = origins.device
-    iota_K = torch.arange(K, device=dev)[None, :]
+    iota_K = _slot_iota(K, dev)
     iota_S1 = torch.arange(S + 1, device=dev)[None, :]
     words = _as_packed(bitfield)
 
@@ -121,7 +150,10 @@ def march_rays(config: MarchConfig, bitfield: torch.Tensor, origins: torch.Tenso
     k = torch.zeros((N,), dtype=torch.int64, device=dev)
     ts = torch.zeros((N, K), dtype=torch.float32, device=dev)
     dts = torch.zeros((N, K), dtype=torch.float32, device=dev)
-    for _ in range(n_iters):
+    every = _check_every(t, 0)
+    for it in range(n_iters):
+        if every and it and it % every == 0 and not bool(((t < t_far) & (k < K)).any()):
+            break  # every ray is done: the rest would change nothing
         # cone-step candidate chain t_0..t_{S-1} and its end point
         t_list, dt_list = [], []
         tj = t
@@ -141,9 +173,9 @@ def march_rays(config: MarchConfig, bitfield: torch.Tensor, origins: torch.Tenso
         m = torch.where(ray_active, torch.minimum(n_lead, K - k), 0)
         # emit candidates j < m into slots k..k+m-1
         for j in range(S):
-            write = (iota_K == (k + j)[:, None]) & (ray_active & (j < m))[:, None]
-            ts = torch.where(write, t_stack[:, j][:, None], ts)
-            dts = torch.where(write, dt_stack[:, j][:, None], dts)
+            write = _writer(iota_K, K, k + j, ray_active & (j < m))
+            ts = write(ts, t_stack[:, j])
+            dts = write(dts, dt_stack[:, j])
         # next t: candidate m (the end point when the whole span emitted),
         # plus a voxel skip only when the run ended at an unoccupied
         # in-range candidate (not when K or t_far stopped it)
@@ -172,7 +204,7 @@ def _march_rays_scalar(config: MarchConfig, bitfield, origins, dirs, t_start, t_
         g_fine = fine.shape[1] if fine is not None else config.grid_size
         words_fine = _as_packed(fine) if fine is not None else None
     words = _as_packed(bitfield)
-    iota_K = torch.arange(K, device=dev)[None, :]
+    iota_K = _slot_iota(K, dev)
 
     t = t_start
     k = torch.zeros((N,), dtype=torch.int64, device=dev)
@@ -182,10 +214,11 @@ def _march_rays_scalar(config: MarchConfig, bitfield, origins, dirs, t_start, t_
         g = torch.ones_like(t)
         gts, gdts = torch.zeros_like(ts), torch.zeros_like(dts)
         lo, hi = MIN_CONE_STEPSIZE, MAX_CONE_STEPSIZE
+    every = _check_every(t, _DONE_CHECK)
     for it in range(n_iters):
         # once every ray is done an iteration changes nothing: look every
-        # _DONE_CHECK iterations (one host sync each) and stop
-        if it and it % _DONE_CHECK == 0 and not bool(((t < t_far) & (k < K)).any()):
+        # `every` iterations and stop
+        if it and it % every == 0 and not bool(((t < t_far) & (k < K)).any()):
             break
         pos = origins + t[:, None] * dirs
         dt = calc_dt(t, config.cone_angle)
@@ -196,17 +229,17 @@ def _march_rays_scalar(config: MarchConfig, bitfield, origins, dirs, t_start, t_
             occ_emit = occ & occupancy_lookup_packed(words_fine, g_fine, pos, mip)
         active = (t < t_far) & (k < K)
         emit = active & occ_emit
-        write = (iota_K == k[:, None]) & emit[:, None]
-        ts = torch.where(write, t[:, None], ts)
-        dts = torch.where(write, dt[:, None], dts)
+        write = _writer(iota_K, K, k, emit)
+        ts = write(ts, t)
+        dts = write(dts, dt)
         skip = _next_voxel_skip(t, pos, dirs, mip, dt, config.grid_size)
         if fine is not None:
             skip = torch.where(occ, _next_voxel_skip(t, pos, dirs, mip, dt, g_fine), skip)
         if t_grad:
             tc = t * config.cone_angle
             ddt = torch.where((tc > lo) & (tc < hi), config.cone_angle, 0.0)
-            gts = torch.where(write, g[:, None], gts)
-            gdts = torch.where(write, (ddt * g)[:, None], gdts)
+            gts = write(gts, g)
+            gdts = write(gdts, ddt * g)
             n_steps = torch.round(skip / dt)
             g = torch.where(emit, g * (1.0 + ddt),
                             torch.where(active, g * (1.0 + n_steps * ddt), g))
@@ -225,7 +258,10 @@ def advance_to_occupied(config: MarchConfig, bitfield, origins, dirs, t_start, t
     pixels, so that the streaming renderer's rounds start on content."""
     words = _as_packed(bitfield)
     t = t_start
-    for _ in range(n_iters):
+    every = _check_every(t, 0)
+    for it in range(n_iters):
+        if every and it and it % every == 0 and not bool(active.any()):
+            break  # no ray moved last time: the rest would change nothing
         pos = origins + t[:, None] * dirs
         dt = calc_dt(t, config.cone_angle)
         mip = _probe_mip(config, pos, dt)

@@ -9,10 +9,14 @@ its colour MLP is run once with the vertex's own direction from the camera
 value is stored channel-last: the storage is (K, R+1, R+1, R+1, 4), the four
 channels of a vertex side by side, and callers see it as the permuted view
 (K, R+1, 4, R+1, R+1).  The kernel is `csrc/shade.cu` (the MLP on the
-tensor cores): a tuned path for the fox's 32-64-64-3 colour MLP and a
-general path for any other ReLU colour MLP the JAX kernel takes (0 or more
-hidden layers of one width); its source note gives the design and the
-bound.
+tensor cores): a tuned path for the fox's 32-64-64-3 colour MLP (mma.sync,
+weights in "fragment" order) and a general path for any other ReLU colour
+MLP the JAX kernel takes, 0 or more hidden layers of one width: a
+warp-specialised wgmma kernel up to width 256 (weights in "wgmma" order; a
+net without hidden layers in fragment order), and for the nets it cannot
+hold (wider, or weights that leave it no room) a wide kernel that runs the
+layers through shared tiles (fragment order); the source notes give the
+designs and the bounds.
 """
 
 from __future__ import annotations
@@ -77,81 +81,132 @@ def mlp_for_weights(rgb_weights) -> MLPConfig:
                      n_hidden_layers=n_hidden, activation="ReLU", output_activation="None")
 
 
-@functools.lru_cache(maxsize=16)
-def _pack_index(shapes: tuple, device: torch.device) -> torch.Tensor:
+# the general kernel's weight descriptors (csrc/shade.cu GEN_LBO, GEN_SBO):
+# a layer is k16 steps of 8-output groups of two 8 x 8 core matrices (the
+# two halves of the step's 16 inputs, LBO bytes apart; successive groups SBO
+# bytes apart), each core matrix 8 outputs x 8 inputs, inputs contiguous
+WGMMA_LBO, WGMMA_SBO = 128, 256
+LAYOUTS = ("fragment", "wgmma")
+
+
+def _kernel_layout(n_hidden: int, path: str) -> str:
+    """The weight layout a path reads: the general kernel's wgmma
+    descriptors, or fragments for the tuned and wide kernels and for a net
+    without hidden layers (the general kernel's producer warps run its one
+    layer with mma.sync)."""
+    return "wgmma" if path == "general" and n_hidden else "fragment"
+
+
+def general_width(width: int) -> int:
+    """The general kernel's padded hidden width for a padded width
+    (shade_mlp_layout's): 64, 128 or 256, the widths it is built for (zero
+    weights pad the rest, the same function).  Raises above 256, wgmma's
+    widest product."""
+    for w in (64, 128, 256):
+        if width <= w:
+            return w
+    raise ValueError(f"shade kernel: hidden widths above 256 are not taken, got {width}")
+
+
+def _layer_dims(shapes, layout: str):
+    """(input rows, output columns) of each packed layer: the inputs padded
+    to the previous layer's padded output (32 for the first), the hidden
+    outputs to the layout's width, the output layer's to one n8 tile."""
+    n_hidden, width = shade_mlp_layout(shapes)
+    if layout == "wgmma" and n_hidden:
+        width = general_width(width)
+    ks = [32] + [width] * n_hidden
+    return [(ks[i], width if i < n_hidden else 8) for i in range(n_hidden + 1)]
+
+
+@functools.lru_cache(maxsize=32)
+def _pack_index(shapes: tuple, device: torch.device, layout: str = "fragment") -> torch.Tensor:
     """For every bf16 value of the packed weights, its position in
     cat([W.flatten() for each layer] + [[0]]), as an index tensor on
-    `device` (built once per shape list and device): the last slot is the
-    zero that pads each layer's input to the previous layer's padded output,
-    a hidden width to a multiple of 16 and the output layer from 3 to 8
-    outputs.  A hidden layer is stored in (k16, pair of n8) tiles of 32
-    lanes x 8 values, the output layer in k16 tiles of 32 lanes x 4.
+    `device` (built once per shape list, device and layout): the last slot
+    is the zero that pads each layer's input to the previous layer's padded
+    output, a hidden width to the layout's and the output layer from 3 to 8
+    outputs.
 
-    The layout is the B-fragment order of mma.m16n8k16 (B is k x n,
-    "col"): lane l = 4g + t of the (k16 tile kt, n8 tile nt) fragment holds
-    B[16kt + 2t + {0, 1}, 8nt + g] and B[16kt + 2t + 8 + {0, 1}, 8nt + g].
-    A hidden layer stores n8 tiles in pairs, so a lane's 8 values (16
-    bytes) feed two mma instructions."""
-    _, width = shade_mlp_layout(shapes)
+    "fragment" (the tuned kernel's) is the B-fragment order of
+    mma.m16n8k16 (B is k x n, "col"): lane l = 4g + t of the (k16 tile kt,
+    n8 tile nt) fragment holds B[16kt + 2t + {0, 1}, 8nt + g] and B[16kt +
+    2t + 8 + {0, 1}, 8nt + g].  A hidden layer stores n8 tiles in pairs, so
+    a lane's 8 values (16 bytes) feed two mma instructions; the output layer
+    is k16 tiles of 32 lanes x 4.
+
+    "wgmma" (the general kernel's) is K-major core matrices for wgmma's
+    shared-memory descriptors: value (k, n) of a layer with N padded
+    outputs sits at [k // 16][n // 8][(k % 16) // 8][n % 8][k % 8], so
+    k16 step kt starts kt * (N / 8) * 256 bytes in, the two 8-input halves
+    of a step lie WGMMA_LBO bytes apart and the 8-output groups WGMMA_SBO."""
     lane = torch.arange(32)
     g, t = lane // 4, lane % 4
-    # k offsets of a lane's four values within a k16 tile
-    koff = torch.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9], dim=1)  # (32, 4)
     zero = sum(a * b for a, b in shapes)
-    parts, base, k_pad = [], 0, 32
-    for n_in, n_out in shapes[:-1]:
-        kt = torch.arange(k_pad // 16)[:, None, None, None, None]
-        npair = torch.arange(width // 16)[None, :, None, None, None]
-        half = torch.arange(2)[None, None, None, :, None]
-        k = 16 * kt + koff[None, None, :, None, :]
-        n = 16 * npair + 8 * half + g[None, None, :, None, None]
+    parts, base = [], 0
+    for (k_pad, n_pad), (n_in, n_out) in zip(_layer_dims(shapes, layout), shapes):
+        if layout == "wgmma":
+            kt, ng, kh, nn, kk = torch.meshgrid(
+                torch.arange(k_pad // 16), torch.arange(n_pad // 8), torch.arange(2),
+                torch.arange(8), torch.arange(8), indexing="ij")
+            k, n = 16 * kt + 8 * kh + kk, 8 * ng + nn
+        elif n_pad == 8:  # the output layer: one n8 tile a k16 tile
+            koff = torch.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9], dim=1)  # (32, 4)
+            k = 16 * torch.arange(k_pad // 16)[:, None, None] + koff[None]
+            n = g[None, :, None].expand(k.shape)
+        else:
+            koff = torch.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9], dim=1)
+            kt = torch.arange(k_pad // 16)[:, None, None, None, None]
+            npair = torch.arange(n_pad // 16)[None, :, None, None, None]
+            half = torch.arange(2)[None, None, None, :, None]
+            k = 16 * kt + koff[None, None, :, None, :]
+            n = 16 * npair + 8 * half + g[None, None, :, None, None]
         idx = torch.where((k < n_in) & (n < n_out), base + k * n_out + n, zero)
         parts.append(idx.reshape(-1))
         base += n_in * n_out
-        k_pad = width
-    n_in = shapes[-1][0]
-    kt = torch.arange(k_pad // 16)[:, None, None]
-    k = 16 * kt + koff[None]                       # (KT, 32, 4)
-    n = g[None, :, None].expand(k.shape)
-    parts.append(torch.where((n < 3) & (k < n_in), base + k * 3 + n, zero).reshape(-1))
     return torch.cat(parts).to(device)
 
 
-def pack_shade_weights(rgb_weights) -> torch.Tensor:
-    """Colour-MLP weights [(32, W), (W, W)..., (W, 3)] -> the kernel's bf16
-    fragment-order buffer ((6656,), 13,312 bytes, for the fox's
-    32-64-64-3)."""
+def pack_shade_weights(rgb_weights, layout: str = "fragment") -> torch.Tensor:
+    """Colour-MLP weights [(32, W), (W, W)..., (W, 3)] -> a kernel's bf16
+    weight buffer in `layout` (see _pack_index): "fragment" for the tuned
+    kernel ((6656,), 13,312 bytes, for the fox's 32-64-64-3), "wgmma" for
+    the general kernel."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"pack_shade_weights: layout must be one of {LAYOUTS}, got {layout!r}")
     dev = rgb_weights[0].device
     shapes = tuple(tuple(w.shape) for w in rgb_weights)
     flat = torch.cat([w.to(torch.bfloat16).reshape(-1) for w in rgb_weights]
                      + [torch.zeros(1, dtype=torch.bfloat16, device=dev)])
-    return flat[_pack_index(shapes, dev)].contiguous()
+    return flat[_pack_index(shapes, dev, layout)].contiguous()
 
 
-# the weights last packed for the kernel and their versions: a frame loop
+# the weights last packed for each layout and their versions: a frame loop
 # shades with the same tensors every time
-_packed: dict = {"weights": (), "versions": (), "buffer": None}
+_packed: dict = {layout: {"weights": (), "versions": (), "buffer": None} for layout in LAYOUTS}
 
 
-def _packed_for(rgb_weights, device: torch.device) -> torch.Tensor:
-    """pack_shade_weights on `device`, done again only when the weight
-    tensors are other objects than last time, were written in place since,
-    or were packed for another device."""
+def _packed_for(rgb_weights, device: torch.device, layout: str = "fragment") -> torch.Tensor:
+    """pack_shade_weights on `device` in `layout`, done again only when the
+    weight tensors are other objects than last time, were written in place
+    since, or were packed for another device."""
+    cache = _packed[layout]
     versions = tuple(w._version for w in rgb_weights)
-    same = (len(_packed["weights"]) == len(rgb_weights)
-            and all(a is b for a, b in zip(_packed["weights"], rgb_weights))
-            and _packed["versions"] == versions
-            and _packed["buffer"].device == device)
+    same = (len(cache["weights"]) == len(rgb_weights)
+            and all(a is b for a, b in zip(cache["weights"], rgb_weights))
+            and cache["versions"] == versions
+            and cache["buffer"].device == device)
     if not same:
-        _packed.update(weights=tuple(rgb_weights), versions=versions,
-                       buffer=pack_shade_weights([w.to(device) for w in rgb_weights]))
-    return _packed["buffer"]
+        cache.update(weights=tuple(rgb_weights), versions=versions,
+                     buffer=pack_shade_weights([w.to(device) for w in rgb_weights], layout))
+    return cache["buffer"]
 
 
-def unpack_shade_weights(packed: torch.Tensor, shapes=_TUNED_SHAPES) -> list[torch.Tensor]:
+def unpack_shade_weights(packed: torch.Tensor, shapes=_TUNED_SHAPES,
+                         layout: str = "fragment") -> list[torch.Tensor]:
     """The inverse of pack_shade_weights for weights of `shapes` -> bf16."""
     shapes = tuple(tuple(sh) for sh in shapes)
-    idx = _pack_index(shapes, packed.device)
+    idx = _pack_index(shapes, packed.device, layout)
     sizes = [a * b for a, b in shapes]
     flat = torch.zeros(sum(sizes) + 1, dtype=packed.dtype, device=packed.device)
     flat[idx] = packed
@@ -224,24 +279,84 @@ def shade_volume(rows, scale, cam_origin, rgb_weights, *, resolution: int,
     origin, colour-MLP weights [(32, W), (W, W)..., (W, 3)] ->
     (K, R+1, 4, R+1, R+1) bf16 axis-0 volume, a view of channel-last
     storage.  Launches the CUDA kernel for CUDA tensors: the tuned path for
-    the fox's 32-64-64-3, the general path for any other ReLU colour MLP;
+    the fox's 32-64-64-3, the general path for any other ReLU colour MLP
+    (the general kernel, or the wide kernel for a net it cannot hold);
     tensors on the CPU take the plain version.  Raises for an MLP the
     kernel does not take."""
     return _shade_volume(rows, scale, cam_origin, rgb_weights, resolution=resolution,
                          n_cascades=n_cascades, density_act=density_act, rgb_act=rgb_act,
-                         rgb_mlp=rgb_mlp, general=False)
+                         rgb_mlp=rgb_mlp)
 
 
 def _shade_general(rows, scale, cam_origin, rgb_weights, **kw) -> torch.Tensor:
     """shade_volume through the general path whatever the MLP, the fox's
-    32-64-64-3 included: the checks hold it to the tuned path's bits."""
-    return _shade_volume(rows, scale, cam_origin, rgb_weights, general=True, **kw)
+    32-64-64-3 included: the checks hold it to the tuned path's bits (the
+    two paths' tensor-core instructions sum alike, see mma_probe).  A net
+    the general kernel cannot hold takes the wide kernel, as in
+    shade_volume."""
+    return _shade_volume(rows, scale, cam_origin, rgb_weights, path="general", **kw)
+
+
+def _shade_wide(rows, scale, cam_origin, rgb_weights, **kw) -> torch.Tensor:
+    """shade_volume through the wide kernel whatever the MLP: the general
+    path's first kernel, which the checks time beside the general kernel."""
+    return _shade_volume(rows, scale, cam_origin, rgb_weights, path="wide", **kw)
+
+
+def _launch_config(path: str, n_words: int, width: int,
+                   n_hidden: int) -> tuple[int, int, int]:
+    """(warps a block, blocks an SM, dynamic shared bytes a block) of a
+    launch of the general or wide kernel; 0 warps if none fits."""
+    lib = cuda_lib.load("shade")
+    fn = lib.shade_wide_config if path == "wide" else lib.shade_general_config
+    fn.restype = ctypes.c_int
+    depth = () if path == "wide" else (n_hidden,)
+    fn.argtypes = [ctypes.c_int] * (2 + len(depth)) + [ctypes.POINTER(ctypes.c_int)] * 2
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    warps = int(fn(n_words, width, *depth, ctypes.byref(smem), ctypes.byref(blocks)))
+    return warps, blocks.value, smem.value
+
+
+@functools.lru_cache(maxsize=64)
+def _general_fits(shapes: tuple, device_index: int) -> bool:
+    """Whether the general kernel holds this net on the card: a padded
+    width of at most 256 and weights that leave room for its stage ring."""
+    n_hidden, width = shade_mlp_layout(shapes)
+    if n_hidden and width > 256:
+        return False
+    with torch.cuda.device(device_index):
+        return _launch_config("general", *_words_and_width(shapes, "general"), n_hidden)[0] > 0
+
+
+def _words_and_width(shapes: tuple, path: str) -> tuple[int, int]:
+    """(32-bit words of packed weights, the width the launch is given) of a
+    net on the general or wide path."""
+    n_hidden, width = shade_mlp_layout(shapes)
+    layout = _kernel_layout(n_hidden, path)
+    if path == "general":
+        width = general_width(width) if n_hidden else 32
+    return sum(k * n for k, n in _layer_dims(shapes, layout)) // 2, width
+
+
+def _route(shapes: tuple, path: str, device: torch.device) -> str:
+    """The kernel a net takes: the tuned one for the fox's net (unless the
+    general path is asked for), else the general kernel where it holds the
+    net, else the wide kernel."""
+    if path == "auto" and shapes == _TUNED_SHAPES:
+        return "tuned"
+    if path == "wide" or not _general_fits(shapes, device.index or 0):
+        return "wide"
+    return "general"
 
 
 def _shade_volume(rows, scale, cam_origin, rgb_weights, *, resolution: int,
                   n_cascades: int, density_act: NerfActivation,
                   rgb_act: NerfActivation, rgb_mlp: MLPConfig | None = None,
-                  general: bool) -> torch.Tensor:
+                  path: str = "auto", stall_ns: int = 0) -> torch.Tensor:
+    """shade_volume on the kernel `path` asks for ("auto", "general" or
+    "wide", see _route).  stall_ns > 0 has the general kernel's producer
+    warp 0 write its rows late, so that its stages fill out of order (the
+    checks' hook)."""
     kw = dict(resolution=resolution, n_cascades=n_cascades,
               density_act=density_act, rgb_act=rgb_act)
     if rows.device.type == "cpu":
@@ -269,7 +384,12 @@ def _shade_volume(rows, scale, cam_origin, rgb_weights, *, resolution: int,
     if tuple(scale.shape) != (K, 16):
         raise ValueError(f"shade_volume: scale must be ({K}, 16)")
     cam = cam_origin.to(device=dev, dtype=torch.float32).contiguous()
-    packed = _packed_for(rgb_weights, dev)
+    route = _route(shapes, path, dev)
+    if route == "general":
+        if rows.data_ptr() % 16:
+            raise ValueError("shade_volume: the general path reads rows 16-byte aligned")
+        width = general_width(width) if n_hidden else 32
+    packed = _packed_for(rgb_weights, dev, _kernel_layout(n_hidden, route))
     out = torch.empty((K, Rv, Rv, Rv, 4), dtype=torch.bfloat16, device=dev)
 
     lib = cuda_lib.load("shade")
@@ -277,20 +397,21 @@ def _shade_volume(rows, scale, cam_origin, rgb_weights, *, resolution: int,
     acts = (_ACT_CODE[density_act], _ACT_CODE[rgb_act])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if shapes == _TUNED_SHAPES and not general:
+        if route == "tuned":
             fn = lib.shade_volume_launch
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             code = fn(rows.data_ptr(), scale.data_ptr(), cam.data_ptr(),
                       packed.data_ptr(), out.data_ptr(), R, K, *acts, n_sms, stream)
         else:
-            fn = lib.shade_general_launch
+            general = route == "general"
+            fn = lib.shade_general_launch if general else lib.shade_wide_launch
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-                           + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                           + [ctypes.c_int] * (6 if general else 5) + [ctypes.c_void_p])
             code = fn(rows.data_ptr(), scale.data_ptr(), cam.data_ptr(), packed.data_ptr(),
                       packed.numel() // 2, n_hidden, width, out.data_ptr(), R, K, *acts,
-                      n_sms, stream)
+                      n_sms, *((stall_ns,) if general else ()), stream)
     cuda_lib.check(lib, "shade", code)
     shade_volume.launches += 1
     return out.permute(0, 1, 4, 2, 3)
@@ -313,13 +434,30 @@ def kernel_occupancy() -> tuple[int, int]:
 
 def general_occupancy(rgb_weights) -> tuple[int, int, int]:
     """(warps a block, blocks an SM, dynamic shared bytes a block) of the
-    general path for these weights, as its launch picks them."""
+    general path for these weights (the general kernel, or the wide one for
+    a net it cannot hold), as its launch picks them."""
+    shapes = tuple(tuple(int(d) for d in w.shape) for w in rgb_weights)
+    route = _route(shapes, "general", torch.device("cuda", torch.cuda.current_device()))
+    return _launch_config(route, *_words_and_width(shapes, route), shade_mlp_layout(shapes)[0])
+
+
+def mma_probe(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A @ B for (64, 64) bf16 CUDA tensors through the tuned kernel's
+    mma.sync.m16n8k16 chain and through the general kernel's wgmma chain
+    (csrc/shade.cu::shade_mma_probe_kernel) -> two (64, 64) f32 results, for
+    the checks that compare the two instructions' sums."""
+    if a.device.type != "cuda" or tuple(a.shape) != (64, 64) or tuple(b.shape) != (64, 64) \
+            or a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise ValueError("mma_probe: two (64, 64) bf16 CUDA tensors")
+    a, b = a.contiguous(), b.contiguous()
+    d_sync = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    d_wgmma = torch.empty_like(d_sync)
     lib = cuda_lib.load("shade")
-    _, width = shade_mlp_layout([w.shape for w in rgb_weights])
-    n_words = pack_shade_weights([w.cpu() for w in rgb_weights]).numel() // 2
-    fn = lib.shade_general_config
+    fn = lib.shade_mma_probe
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
-    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    warps = int(fn(n_words, width, ctypes.byref(smem), ctypes.byref(blocks)))
-    return warps, blocks.value, smem.value
+    fn.argtypes = [ctypes.c_void_p] * 5
+    with torch.cuda.device(a.device):
+        code = fn(a.data_ptr(), b.data_ptr(), d_sync.data_ptr(), d_wgmma.data_ptr(),
+                  torch.cuda.current_stream(a.device).cuda_stream)
+    cuda_lib.check(lib, "shade", code)
+    return d_sync, d_wgmma

@@ -134,6 +134,16 @@ def test_session_render_baked(spp):
     assert fox_port_session()._baked is None  # the shared session kept no bake
 
 
+def test_session_render_baked_small_frame():
+    """The baked renderer is ported (Slice E): a 16x16 Session.render of the
+    fox in both packages on one bake, at the live frame's rule, with
+    coverage.  (Held in tests/test_torch_live.py's list of once-unported
+    parts before; here it shares this file's bakes.)"""
+    got, want = session_frames(16, 16)
+    hold_frame(got, want)
+    assert got[..., 3].mean() > 0.3
+
+
 def test_render_rays_baked_with_t_cap():
     from sienerf_torch.engines.nerf_baked import render_rays_baked
     from sienerf_torch.utils.camera import uv_to_ray

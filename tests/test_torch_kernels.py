@@ -734,6 +734,169 @@ def test_shade_kernel_takes_every_repo_colour_mlp(cuda, name, R, K):
         assert torch.equal(gen.contiguous().view(torch.int16), got.contiguous().view(torch.int16))
 
 
+GENERAL_SHAPES = dict(
+    RGB_SHAPES, w128x4=((32, 128), (128, 128), (128, 128), (128, 128), (128, 3)),
+    w40=((32, 40), (40, 40), (40, 3)), w256=((32, 256), (256, 256), (256, 3)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [n for n in GENERAL_SHAPES if n != "base"])
+@pytest.mark.parametrize("R,K,culled", [(1, 1, 0.0), (3, 2, 0.5), (4, 3, 0.9), (9, 3, 0.3)])
+def test_general_path_ragged_stages(cuda, name, R, K, culled):
+    """The general kernel's stream of 64-row stages at ragged sizes: 8
+    vertices (one short stage), 128 vertices half kept (a cascade boundary
+    inside a stage), 375 mostly culled, 3,000 (many stages, a short last
+    one), each against the plain version, culled vertices zero."""
+    rng = np.random.default_rng(7 * R + K)
+    Rv = R + 1
+    rows = rng.integers(-32767, 32768, (K * Rv ** 3, 16)).astype(np.int16)
+    rows[rng.random(K * Rv ** 3) < culled] = -32768
+    scale = rng.uniform(2e-5, 2e-4, (K, 16)).astype(np.float32)
+    ws = [torch.from_numpy(rng.normal(0, 1 / np.sqrt(a), (a, b)).astype(np.float32)).to(cuda)
+          for a, b in GENERAL_SHAPES[name]]
+    args = (torch.from_numpy(rows).to(cuda), torch.from_numpy(scale).to(cuda),
+            torch.tensor([0.1, 1.4, -0.6], device=cuda), ws)
+    kw = dict(resolution=R, n_cascades=K, **ACTS)
+    n0 = shade_volume.launches
+    got = _shade_general(*args, **kw)
+    torch.cuda.synchronize()
+    assert shade_volume.launches == n0 + 1
+    want = shade_volume_plain(*args, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-3)
+    sent = torch.from_numpy(rows[:, 0] == -32768).to(cuda)
+    flat = got.permute(0, 1, 3, 4, 2).reshape(-1, 4)
+    assert not bool(flat[sent].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["base_1layer", "base_3layer", "big", "w256"])
+def test_general_path_stages_filled_out_of_order(cuda, name):
+    """The general kernel with producer warp 0 of every block writing its
+    claimed rows 20 us late: the other warps complete later stages first
+    and the consumers run ahead of the stalled stage (three consumer
+    warpgroups at width 64, so a slot's rounds would belong to different
+    consumers with 8 slots), against the plain version."""
+    rng = np.random.default_rng(11)
+    R, K = 48, 2
+    Rv = R + 1
+    rows = rng.integers(-32767, 32768, (K * Rv ** 3, 16)).astype(np.int16)
+    rows[rng.random(K * Rv ** 3) < 0.3] = -32768
+    scale = rng.uniform(2e-5, 2e-4, (K, 16)).astype(np.float32)
+    ws = [torch.from_numpy(rng.normal(0, 1 / np.sqrt(a), (a, b)).astype(np.float32)).to(cuda)
+          for a, b in GENERAL_SHAPES[name]]
+    args = (torch.from_numpy(rows).to(cuda), torch.from_numpy(scale).to(cuda),
+            torch.tensor([0.1, 1.4, -0.6], device=cuda), ws)
+    kw = dict(resolution=R, n_cascades=K, **ACTS)
+    want = shade_volume_plain(*args, **kw)
+    for stall_ns in (20000, 0):
+        got = shade._shade_volume(*args, path="general", stall_ns=stall_ns, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-3)
+
+
+# nets the general kernel cannot hold: wider than 256, or weights that leave
+# no room for its stage ring
+WIDE_SHAPES = {"w272": ((32, 272), (272, 3)), "w512": ((32, 512), (512, 3)),
+               "w288x2": ((32, 288), (288, 288), (288, 3)),
+               "w128x7": ((32, 128),) + ((128, 128),) * 6 + ((128, 3),)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(WIDE_SHAPES))
+@pytest.mark.parametrize("R,K,culled", [(3, 2, 0.5), (16, 3, 0.3)])
+def test_wide_path_takes_what_the_general_kernel_cannot_hold(cuda, name, R, K, culled):
+    """shade_volume and the general path send these nets to the wide kernel
+    (one launch each), against the plain version, culled vertices zero."""
+    rng = np.random.default_rng(5 * R + K)
+    Rv = R + 1
+    rows = rng.integers(-32767, 32768, (K * Rv ** 3, 16)).astype(np.int16)
+    rows[rng.random(K * Rv ** 3) < culled] = -32768
+    scale = rng.uniform(2e-5, 2e-4, (K, 16)).astype(np.float32)
+    ws = [torch.from_numpy(rng.normal(0, 1 / np.sqrt(a), (a, b)).astype(np.float32)).to(cuda)
+          for a, b in WIDE_SHAPES[name]]
+    shapes = tuple(tuple(w.shape) for w in ws)
+    assert shade._route(shapes, "auto", cuda) == shade._route(shapes, "general", cuda) == "wide"
+    args = (torch.from_numpy(rows).to(cuda), torch.from_numpy(scale).to(cuda),
+            torch.tensor([0.1, 1.4, -0.6], device=cuda), ws)
+    kw = dict(resolution=R, n_cascades=K, **ACTS)
+    want = shade_volume_plain(*args, **kw)
+    sent = torch.from_numpy(rows[:, 0] == -32768).to(cuda)
+    for fn in (shade_volume, _shade_general):
+        n0 = shade_volume.launches
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert shade_volume.launches == n0 + 1
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-3)
+        assert not bool(got.permute(0, 1, 3, 4, 2).reshape(-1, 4)[sent].any())
+    warps, blocks, smem = shade.general_occupancy(ws)
+    assert warps >= 1 and blocks >= 1 and smem > 0
+
+
+@pytest.mark.cuda
+def test_wide_path_and_general_kernel_agree(cuda):
+    """The wide kernel (the general path's first kernel) and the general
+    kernel on the configs' general shapes: the same sums, the same bits."""
+    rows, scale, cam, _ = _shade_inputs(R=16, K=3, seed=4, device=cuda)
+    rng = np.random.default_rng(4)
+    kw = dict(resolution=16, n_cascades=3, **ACTS)
+    for name in ("base_0layer", "base_1layer", "base_3layer", "big"):
+        ws = [torch.from_numpy(rng.normal(0, 1 / np.sqrt(a), (a, b)).astype(np.float32))
+              .to(cuda) for a, b in RGB_SHAPES[name]]
+        gen = _shade_general(rows, scale, cam, ws, **kw)
+        wide = shade._shade_wide(rows, scale, cam, ws, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(gen.contiguous().view(torch.int16), wide.contiguous().view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_wide_colour_mlp_sweep_frame_matches_plain(cuda):
+    """A NeRF whose colour MLP is 512 wide: the sweep frame shades with K1
+    (its wide kernel) once and composites with K2 once, against the plain
+    frame."""
+    from sienerf_torch.engines.nerf import NerfEngine
+    from sienerf_torch.engines.nerf_sweep import _fused_prep_eligible, render_frame_sweep
+    from sienerf_torch.io.nerf_dataset import NerfDataset
+    from sienerf_torch.utils.camera import look_at_matrix
+    from sienerf_torch.utils.config import load_network_config
+
+    cfg = load_network_config(Path(__file__).resolve().parent.parent / "configs" / "nerf"
+                              / "base.json")
+    cfg["encoding"] = dict(cfg["encoding"], log2_hashmap_size=14)
+    cfg["rgb_network"] = dict(cfg["rgb_network"], n_neurons=512, n_hidden_layers=1)
+    eng = NerfEngine.create(cfg, NerfDataset.placeholder(1.0), grid_size=32, device=cuda)
+    state = eng.init(0)
+    assert [tuple(w.shape) for w in state["params"]["rgb_mlp"]] == [(32, 512), (512, 3)]
+    occ = {"bitfield": torch.ones_like(state["occ"]["bitfield"])}
+    grid, meta = eng.bake_features(state["params"], occ, resolution=32)
+    assert _fused_prep_eligible(eng, grid)
+    cam = look_at_matrix([0.5, 0.5, -1.6], [0.5, 0.5, 0.5])
+    n0 = (shade_volume.launches, sweep_composite_kernel.launches)
+    rgba, _ = render_frame_sweep(eng, state["params"], grid, meta, cam, (60.0, 60.0),
+                                 width=64, height=48)
+    torch.cuda.synchronize()
+    assert (shade_volume.launches, sweep_composite_kernel.launches) == (n0[0] + 1, n0[1] + 1)
+    want, _ = render_frame_sweep(eng, state["params"], grid, meta, cam, (60.0, 60.0),
+                                 width=64, height=48, impl="plain")
+    torch.testing.assert_close(rgba, want, rtol=2e-2, atol=5e-3)
+
+
+@pytest.mark.cuda
+def test_general_path_instructions_sum_alike(cuda):
+    """One 64x64x64 bf16 product through the tuned kernel's mma.sync and
+    the general kernel's wgmma: the same f32 bits (so the general path
+    gives the tuned path's bits on the fox's 32-64-64-3)."""
+    from sienerf_torch.ops.shade import mma_probe
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for scale in (1.0, 30.0):
+        a = (torch.randn((64, 64), generator=gen, device=cuda) * scale).to(torch.bfloat16)
+        b = torch.randn((64, 64), generator=gen, device=cuda).to(torch.bfloat16)
+        d_sync, d_wgmma = mma_probe(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(d_sync.view(torch.int32), d_wgmma.view(torch.int32))
+        torch.testing.assert_close(d_sync, (a.float() @ b.float()), rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.cuda
 def test_the_ineligible_route_launches_k2_not_k1(cuda):
     """A network K1 does not take (SH degree 3): the sweep frame shades

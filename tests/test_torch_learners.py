@@ -35,7 +35,9 @@ Tolerances (those of tests/test_torch_train.py):
 - the splats: within 1e-5 of each texel's float64 sum of magnitudes."""
 
 import functools
+import inspect
 import json
+import textwrap
 
 import jax
 import jax.numpy as jnp
@@ -424,3 +426,135 @@ def test_loader_reads_the_learners_fields_as_the_reference(tmp_path):
         np.testing.assert_array_equal(getattr(got, name), np.asarray(getattr(want, name)),
                                       err_msg=name)
     assert got.n_extra_dims == want.n_extra_dims == 3
+
+
+# --- the table gradient on other draws --------------------------------------
+#
+# Where the training step's table gradient parts from the reference's on
+# draws other than the one tests/test_torch_train.py and
+# tests/test_torch_learners.py hold (the plain step of test_torch_train's
+# trained state; the reference's draws re-created from its keys).
+#
+# On those draws the jitted reference's table gradient sits up to 24 % of
+# its largest entry from the port's (key folded with 6), where the held
+# draw gives 1 %.  On draws 3, 5 and 6 two roundings account for it,
+# value by value:
+#
+# - XLA under jit contracts a sample's position o + t d into a fused
+#   multiply-add, in the march (the occupancy probe that places the
+#   samples) and in the loss (the position the hash grid encodes).  One ulp
+#   there moves a sample across a cell of the finest level.  With the same
+#   single rounding put into the port's CPU step, every ray's loss meets the
+#   reference's within 1e-6 and the table gradient meets the reference's
+#   within 0.2 % of its largest entry, once the reference accumulates the
+#   table rows in f32 (its "nosort" mode, set on the module here; the JAX
+#   package is not edited).
+# - The reference's default hash backward accumulates each table row's
+#   contributions in bf16 (a caveat in ROADMAP.md): against it the same
+#   step sits within 1 %, as far as the reference's bf16 and f32 modes sit
+#   from each other.
+#
+# On draws 3, 5 and 6 nothing is left for the port's arithmetic.  On the
+# held draw (1) and on draw 7 one ray still differs (by 8.6e-6 and 1.8e-6)
+# through another single rounding of the jitted reference, not located:
+# fusing the start jitter t0 + dt u, the voxel skip t + n dt, the skip's
+# tau + 1e-5 s or the hash encode's x s + 0.5 the same way changes nothing
+# there.  Every other ray meets the reference within 1e-6; the table
+# gradient sits 0.97 % (draw 1) and 0.52 % (draw 7) of its largest entry
+# from the reference's f32 accumulation, against at most 0.1 % on draws 3,
+# 5 and 6, and is held there to the learners' 2 % only: that gap is not
+# explained yet (ROADMAP.md queue 3 item 3).
+
+# draw -> the one ray that still differs (None: no ray)
+TABLE_DRAWS = {3: None, 5: None, 6: None, 1: 20, 7: 50}
+# with the fused positions: per-ray losses, the table against the
+# reference's f32 and bf16 accumulation (relative to its largest entry)
+RAY_ATOL, TABLE_F32, TABLE_BF16 = 1e-6, 2e-3, 1e-2
+TABLE_LEFT = 2e-2  # the table on a draw with a ray left: the learners' tolerance
+
+
+def _fma(src: str, plain: str, a: str, b: str, c: str) -> str:
+    """`plain` (a + b * c) in `src` rounded once, as a fused multiply-add:
+    the product of two f32 values is exact in float64."""
+    assert plain in src, plain
+    return src.replace(plain, f"({a}.double() + {b}.double()[:, None] * {c}.double()).float()")
+
+
+@functools.lru_cache(maxsize=1)
+def _fused_port():
+    """The port's march and loss with the sample positions rounded once."""
+    import sienerf_torch.engines.nerf as tn
+    import sienerf_torch.ops.raymarch as tr
+
+    march = textwrap.dedent(inspect.getsource(tr._march_rays_scalar))
+    march = _fma(march, "origins + t[:, None] * dirs", "origins", "t", "dirs")
+    loss = textwrap.dedent(inspect.getsource(tn.NerfEngine._loss_for_batch))
+    loss = _fma(loss, "o_s + t_f[:, None] * d_s", "o_s", "t_f", "d_s")
+    ns_march, ns_loss = dict(tr.__dict__), dict(tn.__dict__)
+    exec(march, ns_march)
+    exec(loss, ns_loss)
+    return ns_march["_march_rays_scalar"], ns_loss["_loss_for_batch"]
+
+
+@functools.lru_cache(maxsize=2)
+def _reference_step(mode: str):
+    """The jitted reference loss-and-gradient with its hash backward in
+    `mode`, the step's key an argument (one compile for every draw)."""
+    import sienerf_tpu.ops.hashgrid as jh
+
+    jeng, st, _, _, _, _ = T.trained()
+    n_rays, k, iters = jeng._phase_geometry()
+
+    def loss_of(p, key):
+        return jeng._loss_for_batch(p, st["occ"]["bitfield"], jeng.data, key, n_rays,
+                                    st["emap"], st["step"], k, iters)
+
+    step = jax.jit(jax.value_and_grad(loss_of, has_aux=True))
+    prev, jh.HASH_BWD_MODE = jh.HASH_BWD_MODE, mode
+    try:
+        return step.lower(st["params"], jax.random.PRNGKey(0)).compile()  # traced in `mode`
+    finally:
+        jh.HASH_BWD_MODE = prev
+
+
+def _share(a, b) -> float:
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+@pytest.mark.parametrize("draw", list(TABLE_DRAWS))
+def test_table_gradient_gap_is_the_references_fused_positions(draw, monkeypatch):
+    import sienerf_torch.engines.nerf as tn
+    import sienerf_torch.ops.raymarch as tr
+
+    jeng, st, key, eng, tst, ds = T.trained()
+    n_rays, k, iters = jeng._phase_geometry()
+    kk = jax.random.fold_in(key, draw)
+    draws = T._jax_step_draws(kk, n_rays, ds.n_images, False)
+    want = {}
+    for mode in ("bf16", "nosort"):
+        (_, jaux), jg = _reference_step(mode)(st["params"], kk)
+        want[mode] = np.asarray(jg["grid"])
+    # the port as it is: the gap the learners' test cannot allow on every draw
+    _, tg, _ = eng.loss_and_grads(tst, draws, k, iters)
+    raw = _share(tg["grid"].numpy(), want["bf16"])
+    # with the reference's single rounding of the sample positions
+    march, loss_fn = _fused_port()
+    monkeypatch.setattr(tr, "_march_rays_scalar", march)
+    monkeypatch.setattr(tn.NerfEngine, "_loss_for_batch", loss_fn)
+    loss, tg, aux = eng.loss_and_grads(tst, draws, k, iters)
+    g = tg["grid"].numpy()
+    np.testing.assert_array_equal(aux[0].numpy(), np.asarray(jaux[0]))  # samples a ray
+    d_ray = np.abs(aux[1].detach().numpy().astype(np.float64) - np.asarray(jaux[1]))
+    left = TABLE_DRAWS[draw]
+    assert np.nonzero(d_ray > RAY_ATOL)[0].tolist() == ([] if left is None else [left]), draw
+    f32, bf16 = _share(g, want["nosort"]), _share(g, want["bf16"])
+    if left is not None:
+        assert max(f32, bf16) <= TABLE_LEFT, (draw, raw, f32, bf16)
+    else:
+        assert f32 <= TABLE_F32, (draw, raw, f32)
+        assert bf16 <= TABLE_BF16, (draw, raw, bf16)
+        # the rest against the bf16 reference is its own bf16 accumulation
+        assert bf16 <= 1.5 * _share(want["nosort"], want["bf16"]) + TABLE_F32
+    for name in ("density_mlp", "rgb_mlp"):
+        for a, b in zip(tg[name], _reference_step("nosort")(st["params"], kk)[1][name]):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **T.STEP_TOL)

@@ -319,8 +319,7 @@ def test_visualisation_modes_match(mode):
 
 
 @pytest.mark.parametrize("what", ["normals", "distortion", "envmap", "extra_dims",
-                                  "bake_render_grid", "unknown_mode", "baked_renderer",
-                                  "unknown_renderer"])
+                                  "bake_render_grid", "unknown_mode", "unknown_renderer"])
 def test_unported_parts_raise(what):
     _, _, teng, tp, bf = tiny()
     frame = functools.partial(teng.render_frame, tp, torch.from_numpy(bf), 8, 8, _cam(), FOCAL)
@@ -372,14 +371,6 @@ def test_unported_parts_raise(what):
     elif what == "unknown_mode":
         with pytest.raises(ValueError):
             frame(render_mode="wireframe")
-    elif what == "baked_renderer":
-        # ported (Slice E): the fox renders and matches the reference, each
-        # package's Session holding one bake (tests/test_torch_baked.py)
-        from test_torch_baked import hold_frame, session_frames
-
-        got, want = session_frames(16, 16)
-        hold_frame(got, want)
-        assert got[..., 3].mean() > 0.3
     else:
         with pytest.raises(ValueError):
             fox_port_session().render(8, 8, renderer="raster")
