@@ -14,10 +14,11 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   (sienerf_torch/csrc/gather.cu) at the probe's own sizes, each kernel timed
   by bursts of launches and by single calls;
 - the live path: Session.render(renderer="live"), the streaming
-  ray-marched renderer, at 1280x720 (the timed and the phase-synchronised
-  frames at tile 2^17; a 320x180 frame at tiles 2^14 and 2^17 for its tile
-  independence), an 80x45 frame of it against the same code on the CPU, and the sweep frames' PSNR and SSIM
-  against the live frames;
+  ray-marched renderer, at 1280x720 (the timed frame at tile 2^17, the
+  phase-synchronised one at 640x360; a 320x180 frame at tiles 2^14 and
+  2^17 for its tile independence), an 80x45 frame of it against the same
+  code on the CPU, and the sweep frames' PSNR and SSIM against the live
+  frames;
 - the training path: 55 teacher views of the fox field rendered through
   the sweep (K1, K2) at 1280x720 make an in-memory dataset (50 to train, 5
   held out); a fresh fox-width student (8 levels x 4 features, 2^19 rows,
@@ -57,7 +58,7 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   samples, host ground truth; IoU at 64^3 before and after 112 steps,
   1280x720 frames with shadows); `[volume]` a 256^3 shell written as
   .nvdb (144 steps, 1280x720 spp 4 frames of the grid and the network,
-  their opacities); `[mesh]` save_mesh at 256^3 of the SDF (OBJ) and of
+  their opacities); `[mesh]` save_mesh at 192^3 of the SDF (OBJ) and of
   the fox (binary PLY with vertex colours and normals) and
   optimise_mesh_step.  Each times its steps (bundles
   of 16, synchronised at their ends) and frames, splits one step and one
@@ -74,8 +75,8 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   fox's own 32-64-64-3 beside the tuned path, after a probe of one tile
   through both paths' tensor-core instructions), `[takikawa]` configs/sdf/takikawa.json on the [sdf] mesh (the
   octree at depth 10, steps, IoU, one step against the CPU, a 720p frame),
-  `[fine]` the trained student's fine render grid, the 640x360 live frame
-  with and without it, and an 80x45 frame through it against the CPU,
+  `[fine]` the trained student's fine render grid, the 320x180 live frame
+  with and without it, and a 48x27 frame through it against the CPU,
   `[triplane]` configs/nerf/tensor.json (one step against the CPU, frames
   with K1 and K2 held to plain), and `[png]` ten training views written as
   PNGs, loaded by Session.load_file, trained and scored by compare_view.
@@ -86,15 +87,27 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   teacher's depth, the near-density regulariser, rolling shutter) and
   engine B (16 latent codes a view, a 48-input colour MLP), each with one
   injected step held to the CPU (every leaf's gradient), a timed bundle of
-  16 steps at 2^18 samples, an R=256 bake and 720p frames: engine A's
+  4 steps at 2^18 samples, an R=256 bake and 720p frames: engine A's
   sweep frame through K1 and K2 with the envmap behind, bit-equal bundles;
   engine B's through the plain shade and K2 (K1 never launches), K2 held
   to plain, its baked frames through G2 with view 0's and view 3's code,
   a small live frame against the CPU; the five non-pinhole lenses' 720p
-  rays against the CPU, a 640x360 live frame through the OpenCV lens, a
+  rays against the CPU, a 320x180 live frame through the OpenCV lens, a
   distortion-mode frame, a motion-blurred Session.render against the CPU;
   and the two-phase trainer's deep bundle, its switch and a step held to
   the CPU.
+
+- the corner table layout and the front-ends, inside `[png]`'s directory:
+  `[corner]` a corner-layout configs/nerf/base.json at full width (16 x 2
+  levels, 2^19 vertex rows) on the training views (a timed bundle beside
+  the cell student's, its hash encode timed, a step held to the CPU, two
+  bundles bit-equal), exported as .ingp, reloaded by Session.load_snapshot,
+  trained on, and served as a 720p sweep frame through K1 and K2 against
+  plain; `[frontends]` viewer.orbit_benchmark through the sweep,
+  render_view foveated (live, and baked through G2) against the CPU,
+  viewer.make_server on 127.0.0.1 port 0 answering one frame, a Testbed
+  screenshot, and the CLI twin sienerf_torch.run.main on the [png] scene
+  (train, snapshot, eval, a baked screenshot, an orbit video).
 
 It builds every kernel from the sources in the checkout, holds each against
 its plain PyTorch version on the card, checks the sweep frames against the
@@ -142,6 +155,7 @@ LIVE_BIG_TILE = 1 << 17
 # the live frame's tile independence, checked at a small size with a tile
 # that many rays refill
 LIVE_SMALL_TILE_CHECK, LIVE_SMALL_TILE = (320, 180), 1 << 14
+LIVE_SPLIT_FRAME = (640, 360)  # the phase-synchronised live frame (1280x720 until PR 12)
 QUALITY_MIN_DB = 15.0  # a mismatched network config renders fog at ~11 dB
 # the training phase: teacher views on a Fibonacci sphere around the cube
 # centre; every TRAIN_HOLD_EVERY-th (from the middle of the first run) is
@@ -207,7 +221,7 @@ K1_FLOPS_PER_VERTEX = 2 * (32 * 64 + 64 * 64 + 64 * 3)  # the colour MLP
 # package's own frames sit 17.9-21.4 dB from its DDA frame at R=64 (its
 # 30 dB check is of a one-cascade scene without cone stepping), and the
 # port's equal them (tests/test_torch_baked.py)
-BAKED_TIMED = 3
+BAKED_TIMED = 2  # 3 until PR 12
 BAKED_SMALL = (320, 180)
 BAKED_MIN_DB = 20.0  # baked vs live at 720p: the sweep's level
 CULL_TOL = dict(rgb=5e-2, opacity=8e-2, mean_rgb=5e-3)
@@ -218,7 +232,7 @@ TRILINEAR_MIN_DB, TRILINEAR_RES = 35.0, 128
 HYBRID_NERF_CENTERS = ([0.0, 0.0, 0.0], [-0.15, 0.3, 0.2])
 HYBRID_BAKED_TILE, HYBRID_BAKED_TIMED = 1 << 18, 1
 HYBRID_BAKED_SMALL = (160, 90)  # its frame against the live hybrid
-GATHER_REPS = 3  # the gather probe's bursts a shape
+GATHER_REPS = 2  # the gather probe's bursts a shape (5 until PR 11, 3 until PR 12)
 K2_FLOPS_PER_SAMPLE = 30  # affine map, texel select, alpha (one exp), carry
 # Slice F: the image, SDF and volume modes at their configs' full width and
 # mesh export, each input built in code (the reference's image, meshes and
@@ -235,7 +249,7 @@ SDF_MIN_IOU_GAIN = 0.15  # IoU over the untrained network's
 SDF_EYE, SDF_SMALL = (1.3, 0.9, -0.5), (160, 90)
 VOLUME_RES, VOLUME_BUNDLES, VOLUME_SPP = 256, 8, 4
 VOLUME_EYE, VOLUME_FOCAL, VOLUME_SMALL = (0.5, 0.5, -1.5), 1600.0, (64, 36)
-MESH_RES, MESH_OPT_STEPS = 256, 3
+MESH_RES, MESH_OPT_STEPS = 192, 3  # 256^3 until PR 12
 # every configs/nerf/*.json at full width from a seeded init on the fox's
 # occupancy: a bake at CONFIG_BAKE_RES and CONFIG_SMALL sweep frames; K1's
 # general path timed on the fox's R=256 rows with one config of each of the
@@ -252,11 +266,16 @@ K1_WIDE = ((32, 512), (512, 3))
 # the Takikawa SDF (configs/sdf/takikawa.json) on the [sdf] phase's mesh;
 # the fine render grid; the PNG dataset of the [train] views
 TAKIKAWA_BUNDLES = 4
-FINE_FACTOR, FINE_FRAME = 4, (640, 360)  # the fine grid's factor, its live frames
-PNG_VIEWS, PNG_STEPS, PNG_COMPARE_DOWNSCALE = 10, 16, 2
-# the determinism checks' bundles: 4 steps each (every sum of a step runs
-# in each; 16 only repeat them)
-DETERMINISM_STEPS = 4
+FINE_FACTOR, FINE_FRAME = 4, (320, 180)  # the fine grid's factor, its live frames (640x360 until PR 12)
+FINE_CPU_SMALL = (48, 27)  # its frame held to the CPU (CPU_SMALL until PR 12)
+PNG_VIEWS, PNG_STEPS, PNG_COMPARE_DOWNSCALE = 10, 4, 4  # 16 steps and downscale 2 until PR 12
+CORNER_BAKE_RES = 128  # the imported corner field's sweep frame
+FRONT_ORBIT_FRAMES = 8  # viewer.orbit_benchmark's frames at 640x360
+FRONT_FOVEATION, FRONT_FOVEATED = 4.0, (320, 180)  # render_view's foveated views
+FRONT_CLI_LOG2_ROWS = 14  # the CLI twin's net: [png]'s with 2^14 table rows
+# the determinism checks' bundles: 2 steps each (every sum of a step runs
+# in each; more only repeat them; 4 until PR 12)
+DETERMINISM_STEPS = 2
 # frames of the hybrid, baked and fine phases held to the CPU
 CPU_SMALL = (80, 45)
 # the trainer's learners (Slice C2b) on the [train] student at full width:
@@ -269,6 +288,7 @@ LEARN_DIST_RES, LEARN_ENVMAP, LEARN_CODES = 32, (128, 256), 16
 LEARN_ROLLING_SHUTTER = (0.0, 0.0, 0.5, 0.1)
 LEARN_DEPTH_LAMBDA, LEARN_NEAR_REG = 0.1, 1e-3
 LEARN_SMALL, MOTION_SMALL, MOTION_SPP = (64, 36), (32, 18), 4
+LEARN_TIMED_STEPS = 4  # the timed bundles of engines A, B and D (16 until PR 12)
 # lens params: OpenCV k1 k2 p1 p2; fisheye k1..k4; F-theta r0..r4, resx, resy
 LENS_PARAMS = {"opencv": (-0.12, 0.03, 1e-3, -2e-3), "opencv_fisheye": (0.05, -0.01, 2e-3, -1e-3),
                "ftheta": (0.0, 1.2e-3, 0.0, 0.0, 0.0, 1280.0, 720.0), "latlong": (),
@@ -2013,7 +2033,7 @@ def takikawa_phase(dev, obj: Path) -> dict:
 def fine_phase(tr, cam, dev) -> dict:
     """The fine render grid of the trained student: bake_render_grid at
     factor FINE_FACTOR, then the tile-2^17 live frame with and without it,
-    and a CPU_SMALL frame through it against the same code on the CPU."""
+    and a FINE_CPU_SMALL frame through it against the same code on the CPU."""
     import torch
 
     from sienerf_torch import metrics
@@ -2052,8 +2072,8 @@ def fine_phase(tr, cam, dev) -> dict:
         f"two {out['psnr_db']:.2f} dB")
     check(out["fine"]["samples"] < out["coarse"]["samples"], "[fine] no sample was culled")
 
-    # the same port code on the CPU, at CPU_SMALL, through the same fine grid
-    sw, sh = CPU_SMALL
+    # the same port code on the CPU, at FINE_CPU_SMALL, through the same fine grid
+    sw, sh = FINE_CPU_SMALL
     focal_s = tuple(f * sw / WIDTH for f in FOCAL)
     card = eng.render_frame(params, state["occ"]["bitfield"], sw, sh, cam, focal_s,
                             fine_bitfield=fine)[0].cpu()
@@ -2241,6 +2261,7 @@ def png_phase(tr, net_config: dict, dev, tmp: Path) -> dict:
         f"engine) in {out['load_s']:.2f} s: images equal the views quantised to 8 bits, view "
         f"0 through load_image equals sRGB -> linear of its bytes")
     t = time.perf_counter()
+    sess.engine.grid_interval = PNG_STEPS
     loss = sess.train(PNG_STEPS)
     torch.cuda.synchronize()
     out["train_s"] = time.perf_counter() - t
@@ -2331,10 +2352,17 @@ def learner_step_check(name: str, eng, state, dev) -> dict:
     return out
 
 
-def _timed_bundle(name: str, eng, state, dev) -> tuple:
-    """One unsynchronised bundle from `state` -> (state, numbers)."""
+def _timed_bundle(name: str, eng, state, dev, steps: int | None = None) -> tuple:
+    """One unsynchronised bundle (of `steps` steps, else eng.grid_interval)
+    from `state` -> (state, numbers)."""
     import torch
 
+    if steps is not None:
+        interval, eng.grid_interval = eng.grid_interval, steps
+        try:
+            return _timed_bundle(name, eng, state, dev)
+        finally:
+            eng.grid_interval = interval
     stats = {}
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2461,7 +2489,7 @@ def learners_phase(sess, tr, dev, cuda_ms) -> dict:
         f"{LEARN_NEAR_REG}, rolling shutter {LEARN_ROLLING_SHUTTER}; set up in "
         f"{time.perf_counter() - t:.1f} s")
     out["A_step"] = learner_step_check("learners A", engA, stateA, dev)
-    stateA1, out["A_bundle"] = _timed_bundle("learners A", engA, stateA, dev)
+    stateA1, out["A_bundle"] = _timed_bundle("learners A", engA, stateA, dev, LEARN_TIMED_STEPS)
     out["A_determinism"] = determinism_check(engA, stateA, dev, tag=" A")
     split, plain = out["A_determinism"]["phase_ms_per_step"], tr.get("phase_ms_per_step") or {}
     log("[learners] engine A's step split (synchronised) beside the plain student's: "
@@ -2500,7 +2528,7 @@ def learners_phase(sess, tr, dev, cuda_ms) -> dict:
                                   w0[16:]])] + list(state0["params"]["rgb_mlp"][1:]))
     stateB = fresh_state(engB, pB)
     out["B_step"] = learner_step_check("learners B", engB, stateB, dev)
-    stateB1, out["B_bundle"] = _timed_bundle("learners B", engB, stateB, dev)
+    stateB1, out["B_bundle"] = _timed_bundle("learners B", engB, stateB, dev, LEARN_TIMED_STEPS)
     check(not torch.equal(stateB1["params"]["extra_dims"], pB["extra_dims"]),
           "[learners] the latent codes stayed")
     sB = student(engB, stateB1)
@@ -2536,7 +2564,7 @@ def learners_phase(sess, tr, dev, cuda_ms) -> dict:
     out["B_k2_ms"] = cuda_ms(lambda: sweep_composite_kernel(*args, **kw), 10)
     del vol, args, got, want, frame, plain_frame
     # the baked frames through G2, view 0's code and then view 3's, at
-    # 640x360 to keep the script inside its limit
+    # 320x180 to keep the script inside its limit
     bw, bh = FINE_FRAME
     bfocal = tuple(f * bw / WIDTH for f in FOCAL)
     frames = {}
@@ -2635,7 +2663,8 @@ def learners_phase(sess, tr, dev, cuda_ms) -> dict:
     engD = dataclasses.replace(eng0, compact_training=False)
     engD._phase = "deep"
     out["D_step"] = learner_step_check("learners D (deep)", engD, state0, dev)
-    stateD, out["D_bundle"] = _timed_bundle("learners D (deep)", engD, state0, dev)
+    stateD, out["D_bundle"] = _timed_bundle("learners D (deep)", engD, state0, dev,
+                                            LEARN_TIMED_STEPS)
     mean = out["D_bundle"]["samples_per_ray"]
     out["D_phase_after"] = getattr(engD, "_phase", "deep")
     check((out["D_phase_after"] == "fast") == (mean < engD.phase_switch_count * engD.deep_k),
@@ -2658,6 +2687,274 @@ def learners_phase(sess, tr, dev, cuda_ms) -> dict:
     out["launches_by_kernel"] = {k: sum(c[k] for c in launches.values())
                                  for k in ("shade", "sweep", "gather_rows", "gather_small")}
     log(f"[learners] kernel launches on the learner paths: {launches}")
+    return out
+
+
+# -- the corner table layout and the front-ends (Slice G) ---------------------
+
+
+def corner_phase(tr, dev, cuda_ms) -> dict:
+    """A corner-layout copy of configs/nerf/base.json at full width (16
+    levels x 2 features, 2^19 vertex rows) on the [train] phase's views: a
+    4-step warm bundle, one timed bundle of 16 steps at TRAIN_BATCH beside
+    the cell student's ms a step, the hash encode's forward and backward
+    at TRAIN_BATCH samples, one card step against the CPU (every leaf), two
+    bundles from one seed bit-equal; then the field exported with
+    export_ingp, reloaded by Session.load_snapshot (its fp16 table), trained
+    4 steps on the card, baked at CORNER_BAKE_RES and rendered as a 720p
+    sweep frame through K1 and K2 against the plain frame."""
+    import numpy as np
+    import torch
+
+    from sienerf_torch.engines.nerf import NerfEngine
+    from sienerf_torch.io.ingp import export_ingp, tcnn_grid_level_sizes
+    from sienerf_torch.ops import hashgrid
+    from sienerf_torch.session import Session
+    from sienerf_torch.utils.camera import look_at_matrix
+    from sienerf_torch.utils.config import load_network_config
+
+    out = {}
+    cfg = load_network_config(ROOT / "configs" / "nerf" / "base.json")
+    cfg["encoding"] = dict(cfg["encoding"], layout="corner")
+    ds = tr["dataset"]
+    t = time.perf_counter()
+    eng = NerfEngine.create(cfg, ds, train_batch_size=TRAIN_BATCH, device=dev)
+    g = eng.net.grid
+    check(g.layout == "corner" and (g.n_levels, g.n_features_per_level,
+                                    g.log2_hashmap_size) == (16, 2, 19),
+          "[corner] the config is not base.json's grid in the corner layout")
+    state = eng.init(0)
+    check(tuple(state["params"]["grid"].shape) == (16, 1 << 19, 2),
+          "[corner] the table is not (L, T, F)")
+    eng.grid_interval = 4
+    state, _, _ = eng.train_bundle(state, torch.Generator(device=dev).manual_seed(0))
+    eng.grid_interval = 16
+    state, out["bundle"] = _timed_bundle("corner", eng, state, dev)
+    out["ms_per_step"] = out["bundle"]["ms_per_step"]
+    out["cell_ms_per_step"] = tr["ms_per_step"]
+    log(f"[corner] 16x2 corner-layout field, 2^19 rows, aabb {ds.aabb_scale}: "
+        f"{out['ms_per_step']:.1f} ms a step against the cell student's (8x4) "
+        f"{tr['ms_per_step']:.1f} ms (create, init and warm bundle "
+        f"{time.perf_counter() - t:.1f} s)")
+    # the hash grid alone at the batch size, as [train] times the cell table
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pos = torch.rand((TRAIN_BATCH, 3), generator=gen, device=dev)
+    table = state["params"]["grid"].detach().requires_grad_(True)
+    gout = torch.randn((TRAIN_BATCH, g.n_output_dims), generator=gen, device=dev)
+    fwd_ms = cuda_ms(lambda: hashgrid.hashgrid_encode(g, table, pos), 5)
+    both_ms = cuda_ms(lambda: torch.autograd.grad(hashgrid.hashgrid_encode(g, table, pos),
+                                                  table, gout), 5)
+    out["hash_fwd_ms"], out["hash_bwd_ms"] = fwd_ms, both_ms - fwd_ms
+    log(f"[corner] hash grid at {TRAIN_BATCH} samples: forward {fwd_ms:.3f} ms, backward "
+        f"{both_ms - fwd_ms:.3f} ms ({TRAIN_BATCH * g.n_levels * 8} contributions sorted "
+        f"once); the cell student's {tr['hash_fwd_ms']:.3f} / {tr['hash_bwd_ms']:.3f} ms")
+    del pos, table, gout
+    out["card_vs_cpu"] = learner_step_check("corner", eng, state, dev)
+    out["determinism"] = determinism_check(eng, state, dev, tag=" corner")
+
+    # export as .ingp, reload through the Session, train on, serve
+    path = Path(tempfile.mkdtemp()) / "corner.ingp"
+    export_ingp(path, cfg, state["params"], g, eng.net.density_mlp, eng.net.rgb_mlp,
+                density_grid=state["occ"]["density"].cpu().numpy(),
+                aabb_scale=float(ds.aabb_scale), training_step=int(state["step"]))
+    s = Session(device=dev)
+    s.dataset = ds  # train the imported field on the same views
+    t = time.perf_counter()
+    s.load_snapshot(path)
+    out["ingp_mb"] = path.stat().st_size / 1e6
+    got = s.state["params"]["grid"]
+    check(s.engine.net.grid.layout == "corner" and s.training_step == int(state["step"]),
+          "[corner] the .ingp did not load as a corner field at its step")
+    want = state["params"]["grid"].half().float()
+    for lv, n in enumerate(tcnn_grid_level_sizes(g)):  # the rows tcnn stores a level
+        check(torch.equal(got[lv, :n], want[lv, :n]) and not bool(got[lv, n:].any()),
+              f"[corner] level {lv} of the reloaded table is not the exported one in fp16")
+    table0 = got.clone()
+    s.engine.grid_interval = 4  # a few steps show that it trains
+    loss = s.train(4)
+    torch.cuda.synchronize()
+    out["ingp_train_s"] = time.perf_counter() - t
+    out["ingp_loss"] = loss
+    check(math.isfinite(loss) and not torch.equal(s.state["params"]["grid"], table0),
+          "[corner] the reloaded field did not train")
+    log(f"[corner] exported ({out['ingp_mb']:.1f} MB .ingp), reloaded by "
+        f"Session.load_snapshot and trained 4 steps in {out['ingp_train_s']:.1f} s: loss "
+        f"{loss:.5f}")
+    cam = look_at_matrix(EYES[0], [0.5, 0.5, 0.5])
+    zero_kernel_counts()
+    t = time.perf_counter()
+    frame = s.render(WIDTH, HEIGHT, cam, FOCAL, renderer="sweep",
+                     bake_resolution=CORNER_BAKE_RES)
+    torch.cuda.synchronize()
+    out["bake_and_frame_s"] = time.perf_counter() - t
+    out["launches"] = kernel_counts()
+    plain = s.render(WIDTH, HEIGHT, cam, FOCAL, renderer="sweep", impl="plain")
+    agree = frame_agreement("[corner] 720p sweep frame vs plain (K1 and K2 plain)", frame, plain)
+    out["frame_vs_plain_agree"] = agree
+    log(f"[corner] bake R={CORNER_BAKE_RES} and a 720p sweep frame in "
+        f"{out['bake_and_frame_s']:.1f} s, launches {out['launches']}, mean alpha "
+        f"{float(frame[..., 3].mean()):.3f}")
+    check(agree >= 1.0 - 1e-4, "[corner] the sweep frame differs from the plain frame")
+    check(out["launches"]["shade"] >= 1 and out["launches"]["sweep"] >= 1,
+          "[corner] K1 or K2 was not launched by the imported field's frame")
+    del s, eng, state, frame, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def frontends_phase(sess, dev, png_root: Path, png_net: Path, tmp: Path) -> dict:
+    """The front-ends on the fox session: viewer.orbit_benchmark through the
+    sweep, render_view foveated (live, and baked through G2) against the
+    CPU, viewer.serve on 127.0.0.1 port 0 answering a frame, a Testbed
+    screenshot, and the CLI twin sienerf_torch.run.main on the [png]
+    phase's scene.  K1, K2 and G2 must launch on these paths."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from sienerf_torch import pyngp_compat, viewer
+    from sienerf_torch import run as cli
+    from sienerf_torch.io.png import read_png
+    from sienerf_torch.session import Session
+    from sienerf_torch.utils.camera import look_at_matrix
+
+    out = {}
+    if sess._baked is None:
+        sess.bake(resolution=BAKE_RES)
+    zero_kernel_counts()
+    t = time.perf_counter()
+    rows = viewer.orbit_benchmark(sess, n_frames=FRONT_ORBIT_FRAMES, width=640, height=360,
+                                  renderer="sweep")
+    out["orbit_s"] = time.perf_counter() - t
+    out["orbit"] = rows
+    ms = [r["ms"] for r in rows]
+    log(f"[frontends] orbit_benchmark {FRONT_ORBIT_FRAMES} sweep frames at 640x360: rungs "
+        f"{[r['rung'] for r in rows]}, sizes {sorted({(r['w'], r['h']) for r in rows})}, ms "
+        f"{ms} (median {statistics.median(ms):.1f} ms)")
+    check(len(rows) == FRONT_ORBIT_FRAMES and all(math.isfinite(m) for m in ms),
+          "[frontends] orbit_benchmark log")
+
+    # foveated views: card at 320x180, and card vs CPU at 80x45
+    cpu_sess = Session(device="cpu")
+    cpu_sess.load_snapshot(SNAP)
+    cpu_sess._baked = ({k: v.cpu() for k, v in sess._baked[0].items()}, dict(sess._baked[1]))
+    cam = look_at_matrix(EYES[0], [0.5, 0.5, 0.5])
+    out["foveated"] = {}
+    for renderer in ("live", "baked"):
+        kw = dict(foveation_density=FRONT_FOVEATION, renderer=renderer)
+        t = time.perf_counter()
+        big = viewer.render_view(sess, cam, *FRONT_FOVEATED,
+                                 focal=tuple(f * FRONT_FOVEATED[0] / WIDTH for f in FOCAL), **kw)
+        torch.cuda.synchronize()
+        big_ms = 1e3 * (time.perf_counter() - t)
+        check(big.shape == (FRONT_FOVEATED[1], FRONT_FOVEATED[0], 4)
+              and bool(torch.isfinite(big).all()) and float(big[..., 3].mean()) > 0.05,
+              f"[frontends] foveated {renderer} view")
+        cw, ch = CPU_SMALL
+        focal = tuple(f * cw / WIDTH for f in FOCAL)
+        card = viewer.render_view(sess, cam, cw, ch, focal=focal, **kw).cpu()
+        t = time.perf_counter()
+        on_cpu = viewer.render_view(cpu_sess, cam, cw, ch, focal=focal, **kw)
+        cpu_s = time.perf_counter() - t
+        agree = frame_agreement(f"[frontends] foveated {renderer} {cw}x{ch} card vs CPU",
+                                card, on_cpu)
+        out["foveated"][renderer] = {"ms": big_ms, "cpu_agree": agree, "cpu_s": cpu_s}
+        log(f"[frontends] foveated {renderer} view (density {FRONT_FOVEATION}) "
+            f"{FRONT_FOVEATED[0]}x{FRONT_FOVEATED[1]} in {big_ms:.1f} ms; {cw}x{ch} against "
+            f"the CPU ({cpu_s:.1f} s there): {100 * agree:.2f} % of pixels agree")
+        check(agree >= LIVE_MIN_AGREE, f"[frontends] foveated {renderer}: card and CPU "
+                                       f"disagree")
+    del cpu_sess
+
+    # the HTTP viewer on port 0, one frame through the sweep
+    srv = viewer.make_server(sess, "127.0.0.1", 0, width=640, height=360, target_ms=1e9,
+                             renderer="sweep")
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        with urllib.request.urlopen(base + "/", timeout=60) as r:
+            check(r.status == 200 and b"<canvas" in r.read(), "[frontends] the viewer page")
+        t = time.perf_counter()
+        with urllib.request.urlopen(f"{base}/frame?theta=0.9&phi=0.2&r=2.0", timeout=300) as r:
+            served_ms = r.headers["x-render-ms"]
+            (tmp / "served.png").write_bytes(r.read())
+        out["serve_fetch_ms"] = 1e3 * (time.perf_counter() - t)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    got = read_png(tmp / "served.png")
+    frame = viewer.render_view(sess, viewer.orbit_camera((0.5, 0.5, 0.5), 2.0, 0.9, 0.2),
+                               640, 352, renderer="sweep")
+    want = (np.clip(frame[..., :3].cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+    check(got.shape == want.shape, f"[frontends] served frame {got.shape}, want {want.shape}")
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    out["serve_equal_share"] = float((diff == 0).all(axis=-1).mean())
+    log(f"[frontends] serve on port {srv.server_address[1]}: /frame 640x352 rendered in "
+        f"{served_ms} ms, fetched in {out['serve_fetch_ms']:.1f} ms; its PNG against "
+        f"render_view's frame: {100 * out['serve_equal_share']:.3f} % of pixels equal, max "
+        f"diff {int(diff.max())}")
+    check(out["serve_equal_share"] >= 0.999 and int(diff.max()) <= 1,
+          "[frontends] the served frame is not render_view's")
+
+    # a Testbed screenshot of the fox
+    tb = pyngp_compat.Testbed(device=dev)
+    tb.load_snapshot(SNAP)
+    t = time.perf_counter()
+    tb.screenshot(str(tmp / "testbed.png"), 320, 180)
+    out["testbed_s"] = time.perf_counter() - t
+    shot = read_png(tmp / "testbed.png")
+    check(shot.shape == (180, 320, 4) and shot[..., 3].mean() > 5,
+          "[frontends] Testbed screenshot")
+    log(f"[frontends] Testbed screenshot 320x180 in {out['testbed_s']:.2f} s, mean alpha "
+        f"{shot[..., 3].mean() / 255:.3f}")
+    del tb
+
+    # the CLI twin on the [png] phase's scene
+    video = []
+    try:
+        import cv2  # noqa: F401
+        video = ["--video_camera_path", "orbit", "--video_output", str(tmp / "orbit.mp4"),
+                 "--video_fps", "4", "--video_n_seconds", "1", "--video_spp", "1",
+                 "--video_w", "320", "--video_h", "180"]
+    except ImportError:
+        log("[frontends] no OpenCV here: the CLI run writes no video")
+    # the [png] net with its table cut to 2^FRONT_CLI_LOG2_ROWS rows: the CLI
+    # saves its snapshot at zlib level 6, as the reference does, ~80 s for
+    # the fox-width 2 GB state on the card machine's host (~10 s at 2^16)
+    cli_net = json.loads(png_net.read_text())
+    cli_net["encoding"] = dict(cli_net["encoding"], log2_hashmap_size=FRONT_CLI_LOG2_ROWS)
+    (tmp / "cli_net.json").write_text(json.dumps(cli_net))
+    args = ["--scene", str(png_root), "--network", str(tmp / "cli_net.json"), "--device", str(dev),
+            "--n_steps", "16", "--batch_size", "65536", "--save_snapshot",
+            str(tmp / "cli.msgpack"), "--test_transforms", str(png_root / "transforms.json"),
+            "--eval_max_views", "2", "--eval_spp", "1", "--eval_downscale", "4",
+            "--renderer", "baked", "--screenshot", str(tmp / "cli.png"),
+            "--screenshot_w", "320", "--screenshot_h", "180"] + video
+    t = time.perf_counter()
+    rc = cli.main(args)
+    torch.cuda.synchronize()
+    out["cli_s"] = time.perf_counter() - t
+    check(rc == 0 and (tmp / "cli.msgpack").stat().st_size > 0
+          and read_png(tmp / "cli.png").shape == (180, 320, 4),
+          "[frontends] the CLI run's snapshot or screenshot")
+    if video:
+        import cv2
+
+        cap = cv2.VideoCapture(str(tmp / "orbit.mp4"))
+        n = 0
+        while cap.read()[0]:
+            n += 1
+        cap.release()
+        check(n == 4, f"[frontends] the CLI's video has {n} frames, not 4")
+    log(f"[frontends] python -m sienerf_torch.run {' '.join(args[6:])}: {out['cli_s']:.1f} s")
+    out["launches"] = kernel_counts()
+    log(f"[frontends] launches on the front-ends' paths: {out['launches']}")
+    for name in ("shade", "sweep", "gather_small"):
+        check(out["launches"][name] >= 1, f"[frontends] {name} was never launched")
     return out
 
 
@@ -2945,11 +3242,14 @@ def main() -> int:
         f"{1e3 * big_stats['host_wait_s']:.1f} ms for the device "
         f"({100 * 1e3 * big_stats['host_wait_s'] / live_med:.1f} % of the frame)")
     phases = {"sync_phases": True}
+    pw, ph = LIVE_SPLIT_FRAME
     t = time.perf_counter()
-    live_frame(cams[0], tile=LIVE_BIG_TILE, stats=phases)
+    sess.render(pw, ph, cams[0], tuple(f * pw / WIDTH for f in FOCAL), renderer="live",
+                tile=LIVE_BIG_TILE, stats=phases)
+    torch.cuda.synchronize()
     synced_ms = 1e3 * (time.perf_counter() - t)
-    log(f"[live] where the time goes (one tile-2^17 frame with a device sync after every "
-        f"phase, {synced_ms:.1f} ms): "
+    log(f"[live] where the time goes (one {pw}x{ph} tile-2^17 frame with a device sync after "
+        f"every phase, {synced_ms:.1f} ms): "
         + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in phases["phase_s"].items()))
     # per-ray results do not depend on the tile (a frame of many refills)
     sw, sh = LIVE_SMALL_TILE_CHECK
@@ -3116,8 +3416,21 @@ def main() -> int:
     t = time.time()
     with tempfile.TemporaryDirectory() as png_dir:
         pg = png_phase(tr, sess.network_config, dev, Path(png_dir))
-    pg["phase_s"] = time.time() - t
-    log(f"[png] phase in {pg['phase_s']:.1f} s")
+        pg["phase_s"] = time.time() - t
+        log(f"[png] phase in {pg['phase_s']:.1f} s")
+        # -- 10b'. the corner table layout on the training views; the
+        # front-ends on the fox session and the CLI twin on the [png] scene
+        torch.cuda.empty_cache()
+        t = time.time()
+        cn = corner_phase(tr, dev, cuda_ms)
+        cn["phase_s"] = time.time() - t
+        log(f"[corner] phase in {cn['phase_s']:.1f} s")
+        torch.cuda.empty_cache()
+        t = time.time()
+        fe = frontends_phase(sess, dev, Path(png_dir) / "png_scene",
+                             Path(png_dir) / "png_net.json", Path(png_dir))
+        fe["phase_s"] = time.time() - t
+        log(f"[frontends] phase in {fe['phase_s']:.1f} s")
     # -- 10c. the trainer's optional learners on the student, at full width
     torch.cuda.empty_cache()
     t = time.time()
@@ -3185,7 +3498,9 @@ def main() -> int:
          "launches_triplane_path": tp["launches"]["shade"],
          "max_abs_err_triplane": tp["k1_max_abs_err"],
          "launches_learners_path": ln["launches_by_kernel"]["shade"],
-         "max_abs_err_learners_frame": ln["A_frame_max_abs_err"]},
+         "max_abs_err_learners_frame": ln["A_frame_max_abs_err"],
+         "launches_corner_path": cn["launches"]["shade"],
+         "launches_frontends_path": fe["launches"]["shade"]},
         {"name": "sweep", "route": "cuda", "source": "sienerf_torch/csrc/sweep.cu",
          "replaces": REPLACES["sweep"], "launches": launches["sweep"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
@@ -3204,7 +3519,9 @@ def main() -> int:
          "launches_triplane_path": tp["launches"]["sweep"],
          "max_abs_err_triplane": tp["k2_max_abs_err"],
          "launches_learners_path": ln["launches_by_kernel"]["sweep"],
-         "max_abs_err_learners": ln["B_k2_max_abs_err"], "learners_ms": ln["B_k2_ms"]},
+         "max_abs_err_learners": ln["B_k2_max_abs_err"], "learners_ms": ln["B_k2_ms"],
+         "launches_corner_path": cn["launches"]["sweep"],
+         "launches_frontends_path": fe["launches"]["sweep"]},
     ]
     for name, tag, r in (("gather_rows", "G1", g1_main), ("gather_small", "G2", g2_main)):
         fr = bk["gathers"][tag]  # at the baked frame's shapes, on its ids
@@ -3220,7 +3537,9 @@ def main() -> int:
              "baked_ms": fr["ms"], "baked_call_ms": fr["call_ms"],
              "baked_plain_ms": fr["plain_ms"], "baked_bound_ms": fr["bound_ms"],
              "baked_library_ms": fr["library_ms"], "baked_shape": fr["shape"],
-             "launches_learners_path": ln["launches_by_kernel"][name]})
+             "launches_learners_path": ln["launches_by_kernel"][name],
+             "launches_corner_path": cn["launches"][name],
+             "launches_frontends_path": fe["launches"][name]})
     log(json.dumps({"frame_ms": frame_med,
                     "frame_ms_by_view": [statistics.median(ms) for ms in frame_ms_by_view],
                     "bake_s": bake_s, "live_frame_ms": live_med,
@@ -3254,7 +3573,7 @@ def main() -> int:
                         "psnr_vs_live_db", "ssim_vs_live", "phase_s")},
                     "modes": modes, "modes_s": modes_s,
                     "configs": cf, "fine": fn, "triplane": tp, "png": pg,
-                    "learners": ln}))
+                    "learners": ln, "corner": cn, "frontends": fe}))
     for k in kernels:  # the image, SDF, volume and mesh paths launch none
         k["launches_modes_paths"] = sum(m["launches"][k["name"]] for m in modes.values())
     log(smi)

@@ -19,6 +19,24 @@ class TestbedMode(enum.Enum):
     GEOMETRY = "geometry"
 
 
+class RenderMode(enum.Enum):
+    """Render visualisation modes (the pyngp surface re-exports them)."""
+
+    AO = "ao"
+    SHADE = "shade"
+    NORMALS = "normals"
+    POSITIONS = "positions"
+    DEPTH = "depth"
+    DISTANCE = "distance"
+    STEPGRID = "stepgrid"
+    DISTORTION = "distortion"
+    COST = "cost"
+    SLICE = "slice"
+    SHADE_NERF = "shade_nerf"
+    SHADE_ENVMAP = "shade_envmap"
+    SHADE_GRID_ENVMAP = "shade_grid_envmap"
+
+
 class NerfActivation(enum.Enum):
     """Output activations applied outside the network."""
 

@@ -58,13 +58,14 @@ def single_network_from_jax(np_params: dict, grid_config=None,
     """A JAX single network's params as numpy -> the port's.  The image
     engine keeps its table flat, (L, T*C*F) (a TPU tiling workaround);
     with the network's HashGridConfig `grid_config` the table (flat or
-    not) becomes the port's (L, T, 2^D, F) cell table.  A Takikawa
-    network's (n_vertices, 8) octree features ("takikawa") pass as they
-    are."""
+    not) becomes the port's (L, T, 2^D, F) cell table, or (L, T, F) for
+    the corner layout.  A Takikawa network's (n_vertices, 8) octree
+    features ("takikawa") pass as they are."""
     out = params_from_jax(np_params, device)
     if grid_config is not None and "grid" in out:
         g = grid_config
-        out["grid"] = out["grid"].reshape(g.n_levels, g.table_size, 1 << g.n_dims,
+        corners = (1 << g.n_dims,) if g.layout == "cell" else ()
+        out["grid"] = out["grid"].reshape(g.n_levels, g.table_size, *corners,
                                           g.n_features_per_level).contiguous()
     return out
 

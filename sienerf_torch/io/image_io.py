@@ -1,10 +1,10 @@
 """Image loading and saving (port of the JAX package's io/image_io.py).
 EXR reads and writes through the port's own codec (io/exr.py), linear as
-stored; PNG reads through the port's own decoder (io/png.py), to the
-values cv2.imread gives the JAX package; JPG loads through OpenCV, imported
-when such an image is read: the package does not need it otherwise, so EXR
-and PNG read wherever OpenCV is missing.
-Saving LDR images is not ported yet (Slice G of ROADMAP.md)."""
+stored; PNG reads and writes through the port's own codec (io/png.py),
+the pixels cv2.imread / cv2.imwrite give the JAX package; other LDR
+formats (JPG) go through OpenCV, imported when such an image is read or
+written: the package does not need it otherwise, so EXR and PNG work
+wherever OpenCV is missing."""
 
 from __future__ import annotations
 
@@ -13,15 +13,15 @@ from pathlib import Path
 import numpy as np
 
 from sienerf_torch.io.exr import load_exr_rgba, write_exr
-from sienerf_torch.io.png import read_png
+from sienerf_torch.io.png import read_png, write_png
 
 
 def _cv2():
     try:
         import cv2
     except ImportError as e:
-        raise ImportError("loading JPG and other non-PNG LDR images needs OpenCV (the "
-                          "cv2 module), which is not installed") from e
+        raise ImportError("reading or writing JPG and other non-PNG LDR images needs "
+                          "OpenCV (the cv2 module), which is not installed") from e
     return cv2
 
 
@@ -56,10 +56,29 @@ def load_image(path: str | Path, as_float_linear: bool = True) -> np.ndarray:
     return img
 
 
-def save_image(path: str | Path, img: np.ndarray) -> None:
-    """Save a (H, W, 3|4) float image as a linear half-float EXR."""
+def save_image(path: str | Path, img: np.ndarray, input_is_linear: bool = True) -> None:
+    """Save a (H, W, 3|4) float image.  EXR: linear half floats as given.
+    LDR: colour clipped to [0, 1], sRGB-encoded when `input_is_linear`,
+    then bytes round(255 x); alpha (clipped, not encoded) the same way.
+    PNG writes RGB or RGBA through io/png.py; other formats through
+    OpenCV."""
     path = Path(path)
-    if path.suffix.lower() != ".exr":
-        raise NotImplementedError(f"{path}: saving LDR images is not ported yet (Slice G "
-                                  "of ROADMAP.md); save as .exr")
-    write_exr(path, np.asarray(img, np.float32))
+    img = np.asarray(img, np.float32)
+    ext = path.suffix.lower()
+    if ext == ".exr":
+        write_exr(path, img)
+        return
+    rgb = np.clip(img[..., :3], 0.0, 1.0)
+    if input_is_linear:
+        rgb = np.where(rgb <= 0.0031308, 12.92 * rgb,
+                       1.055 * np.power(np.maximum(rgb, 1e-8), 1 / 2.4) - 0.055)
+    out = (np.clip(rgb, 0, 1) * 255.0 + 0.5).astype(np.uint8)
+    if img.shape[-1] == 4:
+        a = (np.clip(img[..., 3:4], 0, 1) * 255.0 + 0.5).astype(np.uint8)
+        out = np.concatenate([out, a], axis=-1)
+    if ext == ".png":
+        write_png(path, out)
+        return
+    bgr = out[..., [2, 1, 0, 3]] if out.shape[-1] == 4 else out[..., ::-1]
+    if not _cv2().imwrite(str(path), np.ascontiguousarray(bgr)):
+        raise IOError(f"failed to write image {path}")

@@ -360,6 +360,15 @@ def import_ingp(path: str | Path) -> dict:
     return {"config": net_cfg, "params": params, "density_grid": density_grid, "meta": meta}
 
 
+def _host(x):
+    """A tensor (on any device), a list of them, or an array -> numpy."""
+    if isinstance(x, (list, tuple)):
+        return [_host(v) for v in x]
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return x
+
+
 def export_ingp(
     path: str | Path,
     network_config: dict,
@@ -374,10 +383,11 @@ def export_ingp(
     mode: str = "nerf",
     compress: bool = True,
 ) -> None:
-    """Write a reference-compatible snapshot from framework state.  One
-    3-D hash table only: the triplane's three planes have no tcnn layout
-    in the reference's format, and raise."""
-    tree = dict(params)
+    """Write a reference-compatible snapshot from framework state (numpy
+    arrays, or tensors on any device).  One 3-D hash table only: the
+    triplane's three planes have no tcnn layout in the reference's format,
+    and raise."""
+    tree = {k: _host(v) for k, v in params.items()}
     if isinstance(tree.get("grid"), (list, tuple)) or isinstance(grid_cfg, tuple):
         raise NotImplementedError("export_ingp writes one 3-D hash table; a triplane network "
                                   "has three 2-D planes and no .ingp layout")
@@ -408,7 +418,8 @@ def export_ingp(
     }
     if density_grid is not None:
         snap["density_grid_binary"] = (
-            density_grid_to_morton(np.asarray(density_grid, np.float32)).astype(np.float16).tobytes()
+            density_grid_to_morton(np.asarray(_host(density_grid), np.float32))
+            .astype(np.float16).tobytes()
         )
     out = dict(network_config)
     out["snapshot"] = snap

@@ -15,9 +15,9 @@ Interlaced (Adam7) files raise.  The stream is inflated with zlib; the
 scanline filters are undone by `csrc/png_unfilter.cpp` (a sequential loop
 a row), built with g++ at first use into `sienerf_torch/csrc/build/`.
 
-`write_png` writes 8- or 16-bit gray, RGB or RGBA, each row with the
-filter whose output has the least sum of absolute values (libpng's
-heuristic, computed for all rows at once)."""
+`write_png` writes 8- or 16-bit gray, RGB or RGBA (`encode_png` gives
+the file's bytes), each row with the filter whose output has the least sum
+of absolute values (libpng's heuristic, computed for all rows at once)."""
 
 from __future__ import annotations
 
@@ -131,6 +131,11 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 def write_png(path: str | Path, img: np.ndarray, level: int = 6) -> None:
     """Write a (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA uint8 or
     uint16 array as a PNG (zlib `level`)."""
+    Path(path).write_bytes(encode_png(img, level))
+
+
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """The bytes of the PNG file write_png writes."""
     img = np.asarray(img)
     if img.dtype not in (np.uint8, np.uint16) or img.ndim not in (2, 3) \
             or (img.ndim == 3 and img.shape[-1] not in (1, 3, 4)):
@@ -157,6 +162,5 @@ def write_png(path: str | Path, img: np.ndarray, level: int = 6) -> None:
     filtered = np.concatenate([best.astype(np.uint8)[:, None],
                                cand[best, np.arange(h)]], axis=1)
     ctype = {1: 0, 3: 2, 4: 6}[c]
-    Path(path).write_bytes(
-        _SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0))
-        + _chunk(b"IDAT", zlib.compress(filtered.tobytes(), level)) + _chunk(b"IEND", b""))
+    return (_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(filtered.tobytes(), level)) + _chunk(b"IEND", b""))

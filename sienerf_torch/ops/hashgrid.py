@@ -1,8 +1,9 @@
 """Multiresolution hash-grid encoding (port of the JAX package's
 ops/hashgrid.py: HashGridConfig, _static_level_data, _geometry_cell,
-init_hashgrid_params, hashgrid_encode for cell-layout tables with its
-backward, and the render-side packed tables pack_table_bf16 /
-hashgrid_encode_bf16 and pack_table_fp8 / hashgrid_encode_fp8).
+init_hashgrid_params, hashgrid_encode for cell- and corner-layout tables
+with their backwards, hashgrid_stats, and the render-side packed tables
+pack_table_bf16 / hashgrid_encode_bf16 and pack_table_fp8 /
+hashgrid_encode_fp8).
 
 The JAX package carries packed render tables as f32 bitcasts for its TPU
 gathers; here a bf16 table is a bfloat16 tensor (L, T, C*F) and an fp8
@@ -17,10 +18,12 @@ Semantics (tcnn):
             (x * 1) ^ (y * 2654435761) ^ (z * 805459861)  (mod table_size)
 
 The table is in the "cell" layout: one row per interpolation cell holding
-its 2^D corner vectors.  The "corner" layout, tcnn's vertex table (L, T, F)
-that imported .ingp snapshots keep, is ported for the forward only.  The hash is uint32 multiply-XOR; torch's uint32
-arithmetic is incomplete, so it is computed in int64 and masked to 32 bits
-after every product, which gives the same bits.
+its 2^D corner vectors, or in the "corner" layout, tcnn's vertex table
+(L, T, F) that imported .ingp snapshots keep (a config picks it with
+`encoding.layout: "corner"`).  The packed render tables take the cell
+layout only, as in the JAX package.  The hash is uint32 multiply-XOR;
+torch's uint32 arithmetic is incomplete, so it is computed in int64 and
+masked to 32 bits after every product, which gives the same bits.
 
 The backward (`HashGridEncode`, a torch.autograd.Function) follows the
 reference's default mode, "bf16": each sample's contribution w * g to its
@@ -32,8 +35,13 @@ too.  bf16 sums in a fixed order would not reproduce the reference's
 either, and its own test (tests/test_hashgrid.py::test_bwd_bf16_mode_close)
 holds bf16 mode to the f32 backward within 2 % of the largest gradient,
 which bounds the gap.
+The corner layout's backward (`HashGridEncodeCorner`) follows the
+reference's corner branch: each (sample, level, corner) contribution w * g
+is summed into its vertex row in f32, unrounded, in the same fixed order
+(one stable sort of all levels' rows, each row's run summed pairwise).
 The position gradient d_pos is computed only when pos requires a
-gradient (render mode `normals`).
+gradient (render mode `normals`, the camera learners, SDF normals); its
+formula is the same for both layouts.
 """
 
 from __future__ import annotations
@@ -204,20 +212,24 @@ def _interpolate(config: HashGridConfig, pos: torch.Tensor, level_rows) -> torch
 def _require_cell(config: HashGridConfig) -> None:
     if config.layout != "cell":
         raise NotImplementedError(
-            "the corner table layout is ported for the f32 forward only (imported "
-            ".ingp fields); its backward and packed tables are not ported yet: the corner "
-            "layout item of ROADMAP.md's queue 1")
+            "the packed render tables take the cell layout only, as in the JAX package "
+            "(its pack_table_bf16 / pack_table_fp8 assert it); a corner-layout table "
+            "renders and trains from its f32 table")
 
 
-def _geometry_corner(config: HashGridConfig, pos: torch.Tensor):
+def _geometry_corner(config: HashGridConfig, pos: torch.Tensor,
+                     with_per_dim: bool = False):
     """Corner-layout geometry (tcnn's vertex table): one row per (sample,
     level, corner).  pos (N, D) in [0,1]^D -> (idx (N, L, 2^D) int64 in
-    [0, T), w (N, L, 2^D) f32)."""
+    [0, T), w (N, L, 2^D) f32), and with `with_per_dim` also the
+    per-dimension factors of w (N, L, 2^D, D)."""
     L, D = config.n_levels, config.n_dims
     scales, res, dense, mult = _static_level_data(config)
     dev = pos.device
     sc = torch.as_tensor(scales, device=dev)
-    x = pos.float()[:, None, :] * sc[None, :, None] + 0.5  # (N, L, D)
+    # f32 (float64 stays float64, for finite-difference checks)
+    x = pos.to(torch.promote_types(pos.dtype, torch.float32))[:, None, :] \
+        * sc[None, :, None] + 0.5  # (N, L, D)
     x_floor = torch.floor(x)
     frac = x - x_floor
     res_m1 = torch.as_tensor((res - 1).astype(np.float32), device=dev)[None, :, None]
@@ -238,6 +250,8 @@ def _geometry_corner(config: HashGridConfig, pos: torch.Tensor):
     w = per_dim[..., 0]
     for d in range(1, D):
         w = w * per_dim[..., d]
+    if with_per_dim:
+        return idx, w, per_dim
     return idx, w
 
 
@@ -251,6 +265,17 @@ def _encode_corner(config: HashGridConfig, table: torch.Tensor,
     outs = [(rows[l].index_select(0, idx[:, l].reshape(-1)).reshape(-1, 1 << config.n_dims, F)
              * w[:, l, :, None]).sum(dim=1) for l in range(L)]
     return torch.stack(outs, dim=1).reshape(pos.shape[0], L * F)
+
+
+def _corner_features(config: HashGridConfig, table: torch.Tensor,
+                     idx: torch.Tensor) -> torch.Tensor:
+    """The vertex rows of each (sample, level, corner): idx (N, L, C) ->
+    (N, L, C, F), one gather a level."""
+    L, F, T = config.n_levels, config.n_features_per_level, config.table_size
+    N, C = idx.shape[0], idx.shape[2]
+    rows = table.reshape(L, T, F)
+    return torch.stack([rows[l].index_select(0, idx[:, l].reshape(-1)).reshape(N, C, F)
+                        for l in range(L)], dim=1)
 
 
 def init_hashgrid_params(config: HashGridConfig, generator: torch.Generator,
@@ -301,40 +326,107 @@ class HashGridEncode(torch.autograd.Function):
             d = segment_sum_sorted(contrib, skeys, L * T)
             d_table = d.reshape(table.shape).to(table.dtype)
         if want_pos:
-            per_dim = geo[2]
             rows = _rows3(config, table)
             cf = torch.stack([rows[l].index_select(0, idx[:, l]).reshape(N, C, F)
                               for l in range(L)], dim=1)  # (N, L, C, F)
-            fdotg = (cf * gl[:, :, None, :]).sum(dim=-1)  # (N, L, C)
-            # d w / d pos_d = sign(corner offset) * (the other factors) * scale
-            sign = torch.tensor([[1.0 if (c >> d) & 1 else -1.0 for d in range(D)]
-                                 for c in range(C)], device=pos.device)
-            scales = torch.as_tensor(_static_level_data(config)[0], device=pos.device)
-            cols = []
-            for d in range(D):
-                others = [k for k in range(D) if k != d]
-                prod_others = torch.ones_like(w)
-                if others:
-                    prod_others = per_dim[..., others[0]]
-                    for k in others[1:]:
-                        prod_others = prod_others * per_dim[..., k]
-                dw = sign[None, None, :, d] * prod_others * scales[None, :, None]
-                cols.append((fdotg * dw).sum(dim=(1, 2)))
-            d_pos = torch.stack(cols, dim=-1).to(pos.dtype)
+            d_pos = _position_gradient(config, cf, gl, w, geo[2]).to(pos.dtype)
+        return d_table, d_pos, None
+
+
+def _position_gradient(config: HashGridConfig, cf: torch.Tensor, gl: torch.Tensor,
+                       w: torch.Tensor, per_dim: torch.Tensor) -> torch.Tensor:
+    """d_pos (N, D) of either layout from the corner features cf
+    (N, L, C, F), the output gradient gl (N, L, F), the weights w
+    (N, L, C) and their per-dimension factors (N, L, C, D)."""
+    D = config.n_dims
+    C = 1 << D
+    fdotg = (cf * gl[:, :, None, :]).sum(dim=-1)  # (N, L, C)
+    # d w / d pos_d = sign(corner offset) * (the other factors) * scale
+    sign = torch.tensor([[1.0 if (c >> d) & 1 else -1.0 for d in range(D)]
+                         for c in range(C)], device=cf.device)
+    scales = torch.as_tensor(_static_level_data(config)[0], device=cf.device)
+    cols = []
+    for d in range(D):
+        others = [k for k in range(D) if k != d]
+        prod_others = torch.ones_like(w)
+        if others:
+            prod_others = per_dim[..., others[0]]
+            for k in others[1:]:
+                prod_others = prod_others * per_dim[..., k]
+        dw = sign[None, None, :, d] * prod_others * scales[None, :, None]
+        cols.append((fdotg * dw).sum(dim=(1, 2)))
+    return torch.stack(cols, dim=-1)
+
+
+class HashGridEncodeCorner(torch.autograd.Function):
+    """hashgrid_encode of a corner-layout table (L, T, F), or its 2-D
+    flattening (L, T*F), with the reference's corner backward
+    (`_encode_bwd_impl`'s corner branch): d_table sums each (sample,
+    level, corner) contribution w * g into its vertex row in f32, in a
+    fixed order (one stable sort of every level's rows, then
+    ops/fixed_order.py::segment_sum_sorted); d_pos is the analytic
+    position gradient, computed only when pos requires a gradient."""
+
+    @staticmethod
+    def forward(ctx, table, pos, config):
+        ctx.config = config
+        ctx.save_for_backward(table, pos)
+        return _encode_corner(config, table, pos)
+
+    @staticmethod
+    def backward(ctx, g):
+        table, pos = ctx.saved_tensors
+        config = ctx.config
+        L, F, T = config.n_levels, config.n_features_per_level, config.table_size
+        N = pos.shape[0]
+        C = 1 << config.n_dims
+        gl = g.to(torch.promote_types(g.dtype, torch.float32)).reshape(N, L, F)
+        want_pos = ctx.needs_input_grad[1]
+        geo = _geometry_corner(config, pos, with_per_dim=want_pos)
+        idx, w = geo[0], geo[1]
+        d_table = d_pos = None
+        if ctx.needs_input_grad[0]:
+            keys = idx + torch.arange(L, device=pos.device)[None, :, None] * T  # (N, L, C)
+            skeys, order = torch.sort(keys.reshape(-1), stable=True)
+            row = order // C  # the (sample, level) of each sorted contribution
+            contrib = w.reshape(-1)[order, None] * gl.reshape(N * L, F)[row]
+            d = segment_sum_sorted(contrib, skeys, L * T)
+            d_table = d.reshape(table.shape).to(table.dtype)
+        if want_pos:
+            cf = _corner_features(config, table, idx)
+            d_pos = _position_gradient(config, cf, gl, w, geo[2]).to(pos.dtype)
         return d_table, d_pos, None
 
 
 def hashgrid_encode(config: HashGridConfig, table: torch.Tensor,
                     pos: torch.Tensor) -> torch.Tensor:
     """Encode from the f32 cell table (L, T, C, F), or the same flattened
-    to (L, T*C*F); pos (N, D) in [0,1]^D -> (N, L*F) f32.  Differentiable
-    in the table and in pos (HashGridEncode).  A corner-layout table
-    (L, T, F) encodes forward only."""
+    to (L, T*C*F), or from the corner-layout table (L, T, F) or (L, T*F);
+    pos (N, D) in [0,1]^D -> (N, L*F) f32.  Differentiable in the table
+    and in pos (HashGridEncode, HashGridEncodeCorner)."""
     if config.layout != "cell":
-        if torch.is_grad_enabled() and (table.requires_grad or pos.requires_grad):
-            _require_cell(config)
-        return _encode_corner(config, table, pos)
+        return HashGridEncodeCorner.apply(table, pos, config)
     return HashGridEncode.apply(table, pos, config)
+
+
+def hashgrid_stats(config: HashGridConfig, table, n_bins: int = 32) -> list[dict]:
+    """Per-level statistics of the table's values (the reference's
+    LevelStats): the level's resolution, mean, standard deviation, min,
+    max, the share of values within 1e-7 of 0, and a histogram of n_bins
+    bins with its edges, computed with numpy on the host as the reference
+    computes them."""
+    if isinstance(table, torch.Tensor):
+        table = table.detach().cpu().numpy()
+    t = np.asarray(table)
+    stats = []
+    for l in range(config.n_levels):
+        x = t[l].reshape(-1)
+        hist, edges = np.histogram(x, bins=n_bins)
+        stats.append(dict(level=l, resolution=config.level_resolution(l),
+                          mean=float(x.mean()), std=float(x.std()), min=float(x.min()),
+                          max=float(x.max()), frac_zero=float((np.abs(x) < 1e-7).mean()),
+                          histogram=hist.tolist(), bin_edges=edges.tolist()))
+    return stats
 
 
 def pack_table_bf16(config: HashGridConfig, table: torch.Tensor) -> torch.Tensor:

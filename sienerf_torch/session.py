@@ -46,8 +46,10 @@ from sienerf_torch.ops.meshing import extract_mesh, optimise_mesh
 from sienerf_torch.ops.optim import inference_params
 from sienerf_torch.ops.samplers import ld_pixel_offset
 from sienerf_torch.ops.tonemap import error_overlay
+from sienerf_torch.utils import log
 from sienerf_torch.utils.camera import camera_slerp
 from sienerf_torch.utils.config import default_configs_dir, load_network_config
+from sienerf_torch.utils.timers import PhaseTimers
 
 
 # NerfEngine fields that load_file sets from its keyword arguments
@@ -129,6 +131,7 @@ class Session:
         self.training_step = 0
         self.loss = float("nan")
         self.loss_graph: list[float] = []
+        self.timers = PhaseTimers()
         self._baked = None
         self._generator: torch.Generator | None = None
         # the training view whose extra dims frames render with (0: the
@@ -199,11 +202,15 @@ class Session:
             raise RuntimeError("load_file first")
         return self.load_file(scene, network=network, **getattr(self, "_engine_kwargs", {}))
 
-    def train(self, n_steps: int) -> float:
+    def train(self, n_steps: int, log_every: int = 256) -> float:
         """Train until at least n_steps have run -> the last loss: NeRF in
         bundles of engine.grid_interval steps, SDF and volume in bundles of
         16, image one step at a time (each counted as 16 training steps, as
-        the reference's session counts them)."""
+        the reference's session counts them).  Each bundle is timed into
+        timers["train"] (its loss read back inside the timed span); a line
+        `iteration=... loss=...` is logged after each bundle that ends
+        within a bundle's length (16 for image steps) past a multiple of
+        `log_every` steps run in this call, as the reference logs."""
         if self.mode == TestbedMode.GEOMETRY:
             raise RuntimeError("geometry scenes train their NeRF objects separately")
         if self.engine is None:
@@ -216,21 +223,27 @@ class Session:
                 self.seed + self.training_step)
         done = 0
         while done < n_steps:
-            if isinstance(self.engine, ImageEngine):
-                p, o, loss = self.engine.train_step(self.state["params"], self.state["opt"],
-                                                    self._generator)
-                self.state = {"params": p, "opt": o}
-                done, self.training_step = done + 1, self.training_step + 16
-            elif isinstance(self.engine, NerfEngine):
-                self.state, loss, _ = self.engine.train_bundle(self.state, self._generator)
-                done += self.engine.grid_interval
-                self.training_step += self.engine.grid_interval
-            else:
-                self.state, loss = self.engine.train_bundle(self.state, self._generator)
-                done, self.training_step = done + 16, self.training_step + 16
-            self.loss = float(loss)
+            with self.timers.phase("train"):
+                if isinstance(self.engine, ImageEngine):
+                    p, o, loss = self.engine.train_step(self.state["params"],
+                                                        self.state["opt"], self._generator)
+                    self.state = {"params": p, "opt": o}
+                    step = 1
+                elif isinstance(self.engine, NerfEngine):
+                    self.state, loss, _ = self.engine.train_bundle(self.state,
+                                                                   self._generator)
+                    step = self.engine.grid_interval
+                else:
+                    self.state, loss = self.engine.train_bundle(self.state, self._generator)
+                    step = 16
+                self.loss = float(loss)  # reads the device: the span holds the bundle
+            done += step
+            self.training_step += 16 if isinstance(self.engine, ImageEngine) else step
             self.loss_graph.append(self.loss)
             self._baked = None  # a bake is of the params it was made from
+            if done % log_every < getattr(self.engine, "grid_interval", 16):
+                log.info(f"iteration={self.training_step} loss={self.loss:.6f} "
+                         f"{self.timers.summary()}")
         return self.loss
 
     def render_params(self) -> dict:
@@ -263,7 +276,8 @@ class Session:
 
     def load_snapshot(self, path: str | Path):
         """Load a snapshot: a reference .ingp / .msgpack (an engine with the
-        corner-layout table it holds), a render-only snapshot (the fox
+        corner-layout table it holds, on the loaded scene's dataset and
+        train_batch_size where a scene is loaded), a render-only snapshot (the fox
         field: aabb_scale 2^(cascades - 1), configs/nerf/base.json with its
         hash grid sized from the snapshot's grid_shape, both checked), or a
         native training snapshot with its optimizer state (onto the loaded
@@ -271,8 +285,11 @@ class Session:
         aabb_scale)."""
         self._baked = None
         if _is_reference_snapshot(path):
+            # on the loaded scene's dataset, at its train_batch_size
+            bs = getattr(self, "_engine_kwargs", {}).get("train_batch_size", 1 << 18)
             self.engine, self.state = NerfEngine.from_ingp(
-                path, dataset=getattr(self, "dataset", None), device=self.device)
+                path, dataset=getattr(self, "dataset", None), train_batch_size=bs,
+                device=self.device)
             self.mode = TestbedMode.NERF
             self.training_step = int(self.state["step"])
             self._generator = None

@@ -1,6 +1,7 @@
-"""Camera and lens math (port of the JAX package's utils/camera.py): pixel
--> ray for every lens model (pinhole, OpenCV and OpenCV-fisheye
-undistortion, F-theta, lat-long, equirectangular), the trainable
+"""Camera and lens math (port of the JAX package's utils/camera.py): field
+of view <-> focal length, pixel -> ray for every lens model (pinhole,
+OpenCV and OpenCV-fisheye undistortion, F-theta, lat-long,
+equirectangular), the trainable
 distortion map's offset, the lat-long direction maps, and the camera slerp
 of rolling shutter and motion blur.
 
@@ -30,6 +31,18 @@ class Lens:
     @property
     def is_distorted(self) -> bool:
         return self.mode != LensMode.PERSPECTIVE and len(self.params) > 0
+
+
+def fov_to_focal_length(resolution: float, degrees: float) -> float:
+    """The focal length in pixels of a field of view of `degrees` across
+    `resolution` pixels."""
+    return 0.5 * resolution / math.tan(0.5 * math.radians(degrees))
+
+
+def focal_length_to_fov(resolution: float, focal_length: float) -> float:
+    """The field of view in degrees of `focal_length` pixels across
+    `resolution` pixels (the inverse of fov_to_focal_length)."""
+    return 2.0 * math.degrees(math.atan(0.5 * resolution / focal_length))
 
 
 def opencv_lens_distortion_delta(params, x, y):

@@ -92,8 +92,15 @@ def test_load_and_save_image(tmp_path):
     jexr.write_exr(tmp_path / "j.exr", img)
     assert (tmp_path / "s.exr").read_bytes() == (tmp_path / "j.exr").read_bytes()
     np.testing.assert_array_equal(load_image(tmp_path / "s.exr"), jload(tmp_path / "s.exr"))
-    with pytest.raises(NotImplementedError, match="LDR"):
-        save_image(tmp_path / "s.png", img)
+    # LDR saving (ported since): the PNG pixels of the JAX package's cv2 write
+    import cv2
+
+    from sienerf_tpu.io.image_io import save_image as jsave
+
+    save_image(tmp_path / "s.png", img)
+    jsave(tmp_path / "j.png", img)
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "s.png"), cv2.IMREAD_UNCHANGED),
+                                  cv2.imread(str(tmp_path / "j.png"), cv2.IMREAD_UNCHANGED))
 
 
 def test_refuses_what_it_cannot_read(tmp_path):

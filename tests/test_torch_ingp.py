@@ -1,7 +1,7 @@
 """Reference .ingp snapshots, port vs reference: the file codec, the Morton
 order of the density grid, tcnn's parameter layout, the cell <-> corner
-table conversions, import / export, the corner-layout hash-grid forward,
-and an engine built by NerfEngine.from_ingp.
+table conversions, import / export, the corner-layout hash-grid forward
+(and its table gradient), and an engine built by NerfEngine.from_ingp.
 
 Tolerances: the codec, the layouts and the conversions are exact (the same
 numpy arithmetic); export writes the same bytes.  The corner-layout forward
@@ -16,6 +16,7 @@ the port's is not."""
 import dataclasses
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -158,9 +159,16 @@ def test_corner_layout_forward_matches(log2, levels):
     got = th.hashgrid_encode(th.HashGridConfig(**kw), torch.from_numpy(table),
                              torch.from_numpy(pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="corner"):
-        th.hashgrid_encode(th.HashGridConfig(**kw), torch.from_numpy(table).requires_grad_(),
-                           torch.from_numpy(pos))
+    # the corner layout trains: its table gradient is the reference's
+    # (held in full in tests/test_torch_corner.py)
+    g = rng.standard_normal((2000, 2 * levels)).astype(np.float32)
+    _, vjp = jax.vjp(lambda t: jh.hashgrid_encode(jh.HashGridConfig(**kw), t, jnp.asarray(pos)),
+                     jnp.asarray(table))
+    jd = np.asarray(vjp(jnp.asarray(g))[0])
+    t = torch.from_numpy(table).requires_grad_()
+    th.hashgrid_encode(th.HashGridConfig(**kw), t, torch.from_numpy(pos)).backward(
+        torch.from_numpy(g))
+    np.testing.assert_allclose(t.grad.numpy(), jd, rtol=1e-5, atol=1e-6 * np.abs(jd).max())
 
 
 def test_from_ingp_engine_matches_the_reference():
