@@ -18,13 +18,15 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   phase-synchronised one at 640x360; a 320x180 frame at tiles 2^14 and
   2^17 for its tile independence), an 80x45 frame of it against the same
   code on the CPU, and the sweep frames' PSNR and SSIM against the live
-  frames;
+  frames (view 0 at 1280x720, views 1 and 2 at 640x360);
 - the training path: 55 teacher views of the fox field rendered through
   the sweep (K1, K2) at 1280x720 make an in-memory dataset (50 to train, 5
   held out); a fresh fox-width student (8 levels x 4 features, 2^19 rows,
   aabb_scale 4, a 128^3 x 3 occupancy grid, the error map) trains at 2^18
-  samples a step, 16 bundles of 16 steps; one card step is held to the
-  CPU step from the same state and draws at 2^14 samples; the trained
+  samples a step, 16 bundles of 16 steps (the march replayed as CUDA
+  graphs); one step of the trained student is held bit for bit to the
+  same step with the march launched op by op, each timed; one card step is
+  held to the CPU step from the same state and draws at 2^14 samples; the trained
   field's EMA params are baked at R=256 and the held-out views rendered
   through K1 and K2, their PSNR and SSIM against the teacher's frames
   beside those of the untrained student.
@@ -35,7 +37,7 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   as the mesh's ambient light; 1280x720 hybrid sweep frames (mesh pass with
   shadow rays and BRDF shading, then K1 and K2 with the mesh's per-pixel
   t_stop) timed and split by part, held to their plain versions, to the
-  live hybrid frame and, at 80x45, to the CPU; the BVH tier on an
+  live hybrid frame and, at 48x27, to the CPU; the BVH tier on an
   81,920-triangle sphere; the trained student saved, loaded back as a scene
   object and rendered bit-equal; and two training bundles from one seed,
   bit-equal.
@@ -45,7 +47,7 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   and, with fine="brick", G1 (512-byte bricks), both held bit for bit to
   the plain gathers on the frame's own ids and the frames to the plain
   frames; the frame timed, counted and split, against the live frame, its
-  knobs at 320x180, a trilinear R=128 bake, 80x45 frames against the CPU;
+  knobs at 320x180, a trilinear R=128 bake, 48x27 frames against the CPU;
   and the hybrid frame with the trained student loaded twice as NeRF
   objects, rendered through render_rays_baked.
 
@@ -76,7 +78,7 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   through both paths' tensor-core instructions), `[takikawa]` configs/sdf/takikawa.json on the [sdf] mesh (the
   octree at depth 10, steps, IoU, one step against the CPU, a 720p frame),
   `[fine]` the trained student's fine render grid, the 320x180 live frame
-  with and without it, and a 48x27 frame through it against the CPU,
+  with and without it, and a 32x18 frame through it against the CPU,
   `[triplane]` configs/nerf/tensor.json (one step against the CPU, frames
   with K1 and K2 held to plain), and `[png]` ten training views written as
   PNGs, loaded by Session.load_file, trained and scored by compare_view.
@@ -109,12 +111,30 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   screenshot, and the CLI twin sienerf_torch.run.main on the [png] scene
   (train, snapshot, eval, a baked screenshot, an orbit video).
 
+- the multi-device paths, `[multi]`, on max(2, cards) ranks, one process a
+  rank (sienerf_torch/parallel/mesh.py): NCCL with a card a rank, or on one
+  card two ranks sharing it through gloo. Each rank loads the fox and
+  bakes R=256; the sharded 720p sweep frame (K1 on each rank's vertex
+  planes, K2 on its slice of the slab schedule) against the one-device
+  frame at min transmittance 0, the sharded 320x180 live and baked (G2)
+  frames against render_frame and render_frame_baked, K1 on a plane range
+  and K2 on a schedule range (with the best weight) against their plain
+  versions, each frame timed; the data-parallel trainer on a PNG scene of
+  the fox's sweep views (a fox-width net, the 2^18-sample batch's rays
+  split over the ranks): one sharded step bit-equal to rank 0's
+  one-process mean of the per-shard gradients, a timed sharded bundle
+  beside a one-rank bundle, the gradient mean timed, the replicas'
+  bits equal, two sharded bundles from one seed bit-equal. K1, K2 and G2
+  must launch on every rank. `python3 chip_smoke.py --phase multi` builds
+  the kernels and runs this phase alone.
+
 It builds every kernel from the sources in the checkout, holds each against
 its plain PyTorch version on the card, checks the sweep frames against the
 plain-version frames, counts the kernel launches of each path, and times
 frames and kernels.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase multi   # the build, then [multi] alone
 
 Exits non-zero, with no result printed, on any failed check, without a
 CUDA device, or outside a checkout of the repo.  The last line of stdout is
@@ -157,6 +177,7 @@ LIVE_BIG_TILE = 1 << 17
 LIVE_SMALL_TILE_CHECK, LIVE_SMALL_TILE = (320, 180), 1 << 14
 LIVE_SPLIT_FRAME = (640, 360)  # the phase-synchronised live frame (1280x720 until PR 12)
 QUALITY_MIN_DB = 15.0  # a mismatched network config renders fog at ~11 dB
+QUALITY_SMALL = (640, 360)  # views 1 and 2's sweep vs live frames
 # the training phase: teacher views on a Fibonacci sphere around the cube
 # centre; every TRAIN_HOLD_EVERY-th (from the middle of the first run) is
 # held out, so that the held-out views spread over the sphere
@@ -221,7 +242,7 @@ K1_FLOPS_PER_VERTEX = 2 * (32 * 64 + 64 * 64 + 64 * 3)  # the colour MLP
 # package's own frames sit 17.9-21.4 dB from its DDA frame at R=64 (its
 # 30 dB check is of a one-cascade scene without cone stepping), and the
 # port's equal them (tests/test_torch_baked.py)
-BAKED_TIMED = 2  # 3 until PR 12
+BAKED_TIMED = 1
 BAKED_SMALL = (320, 180)
 BAKED_MIN_DB = 20.0  # baked vs live at 720p: the sweep's level
 CULL_TOL = dict(rgb=5e-2, opacity=8e-2, mean_rgb=5e-3)
@@ -232,6 +253,8 @@ TRILINEAR_MIN_DB, TRILINEAR_RES = 35.0, 128
 HYBRID_NERF_CENTERS = ([0.0, 0.0, 0.0], [-0.15, 0.3, 0.2])
 HYBRID_BAKED_TILE, HYBRID_BAKED_TIMED = 1 << 18, 1
 HYBRID_BAKED_SMALL = (160, 90)  # its frame against the live hybrid
+HYBRID_CPU_SMALL = (48, 27)  # the live hybrid frame held to the CPU
+BAKED_CPU_SMALL = (48, 27)  # [baked]'s frames held to the CPU
 GATHER_REPS = 2  # the gather probe's bursts a shape (5 until PR 11, 3 until PR 12)
 K2_FLOPS_PER_SAMPLE = 30  # affine map, texel select, alpha (one exp), carry
 # Slice F: the image, SDF and volume modes at their configs' full width and
@@ -244,7 +267,7 @@ IMAGE_RES, IMAGE_BUNDLES = 4096, 6
 IMAGE_MIN_GAIN_DB = 8.0  # PSNR over the untrained network's (tests/test_image_mode.py)
 MODE_CHECK_BATCH = 1 << 14  # the card step held to the CPU step ...
 MODE_STEP_LOSS_RTOL = 1e-4  # ... at the CPU tests' loss tolerance
-SDF_SPHERE_SUBDIV, SDF_BUNDLES, SDF_IOU_RES = 6, 6, 64
+SDF_SPHERE_SUBDIV, SDF_BUNDLES, SDF_IOU_RES = 6, 4, 64
 SDF_MIN_IOU_GAIN = 0.15  # IoU over the untrained network's
 SDF_EYE, SDF_SMALL = (1.3, 0.9, -0.5), (160, 90)
 VOLUME_RES, VOLUME_BUNDLES, VOLUME_SPP = 256, 8, 4
@@ -267,12 +290,15 @@ K1_WIDE = ((32, 512), (512, 3))
 # the fine render grid; the PNG dataset of the [train] views
 TAKIKAWA_BUNDLES = 4
 FINE_FACTOR, FINE_FRAME = 4, (320, 180)  # the fine grid's factor, its live frames (640x360 until PR 12)
-FINE_CPU_SMALL = (48, 27)  # its frame held to the CPU (CPU_SMALL until PR 12)
+FINE_CPU_SMALL = (32, 18)  # its frame held to the CPU
 PNG_VIEWS, PNG_STEPS, PNG_COMPARE_DOWNSCALE = 10, 4, 4  # 16 steps and downscale 2 until PR 12
 CORNER_BAKE_RES = 128  # the imported corner field's sweep frame
+CORNER_TIMED_STEPS = 4  # its timed bundle
 FRONT_ORBIT_FRAMES = 8  # viewer.orbit_benchmark's frames at 640x360
 FRONT_FOVEATION, FRONT_FOVEATED = 4.0, (320, 180)  # render_view's foveated views
 FRONT_CLI_LOG2_ROWS = 14  # the CLI twin's net: [png]'s with 2^14 table rows
+# the CLI twin's eval views and video frames
+FRONT_CLI_EVAL_VIEWS, FRONT_CLI_VIDEO_FRAMES = 1, 2
 # the determinism checks' bundles: 2 steps each (every sum of a step runs
 # in each; more only repeat them; 4 until PR 12)
 DETERMINISM_STEPS = 2
@@ -294,6 +320,17 @@ LENS_PARAMS = {"opencv": (-0.12, 0.03, 1e-3, -2e-3), "opencv_fisheye": (0.05, -0
                "ftheta": (0.0, 1.2e-3, 0.0, 0.0, 0.0, 1280.0, 720.0), "latlong": (),
                "equirectangular": ()}
 RAY_TOL = dict(rtol=1e-5, atol=1e-5)  # card rays vs CPU rays (f32 ulps of trig)
+# the multi-device paths, [multi]: max(2, cards) ranks (NCCL with a card a
+# rank; on one card two ranks share it through gloo); frames of view 0
+# against the one-device frames (the sweep at min transmittance 0 within
+# the JAX package's sharded-sweep tolerance), the trainer on a PNG scene of
+# MULTI_VIEWS sweep views of the fox at MULTI_VIEW_RES
+MULTI_SMALL = (320, 180)  # the sharded live and baked frames
+MULTI_SWEEP_TOL, MULTI_DEPTH_TOL = dict(rtol=0.0, atol=1e-4), dict(rtol=0.0, atol=1e-3)
+MULTI_LIVE_TILE = 1 << 15  # rays a tile of a rank's live frame
+MULTI_VIEWS, MULTI_VIEW_RES = 12, (640, 360)
+MULTI_TIMED_STEPS = 4  # the timed sharded and one-rank bundles
+MULTI_TIMEOUT_S = 900.0
 
 
 class SmokeFailure(Exception):
@@ -305,7 +342,14 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+T_START = time.time()
+
+
 def log(msg: str) -> None:
+    """A line of the run's log; a phase's lines ("[name] ...") carry the
+    seconds since the script started."""
+    if msg.startswith("["):
+        msg = f"{time.time() - T_START:7.1f}s {msg}"
     print(msg, flush=True)
 
 
@@ -420,7 +464,7 @@ def train_phase(sess, dev, cuda_ms) -> dict:
     from sienerf_torch.engines.nerf import TRAIN_PHASES, NerfEngine
     from sienerf_torch.io.nerf_dataset import NerfDataset
     from sienerf_torch.ops import hashgrid
-    from sienerf_torch.ops.optim import tree_map
+    from sienerf_torch.ops.optim import tree_leaves, tree_map
     from sienerf_torch.ops.shade import shade_volume
     from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel
     from sienerf_torch.session import Session
@@ -550,6 +594,30 @@ def train_phase(sess, dev, cuda_ms) -> dict:
         f"{new_bwd:.3f} ms in a fixed order against {old_bwd:.3f} ms for the parent's "
         f"index_add_ (call times: the fixed order synchronises with the host)")
     del pos, table, gout, enc
+
+    # -- the trained student's next step with its march replayed as CUDA
+    # graphs (the default) and launched op by op: bit-equal, each timed
+    from sienerf_torch.ops import raymarch
+    n_rays, k, iters = eng._phase_geometry()
+    draws = eng.draw_step(torch.Generator(device=dev).manual_seed(2), n_rays, int(state["step"]))
+    by_mode = {}
+    for graphed in (True, False, True):
+        raymarch.GRAPHED_MARCH = graphed
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss_g, grads_g, _ = eng.loss_and_grads(state, draws, k, iters)
+        torch.cuda.synchronize()
+        by_mode[graphed] = (1e3 * (time.perf_counter() - t), loss_g,
+                            [x.clone() for x in tree_leaves(grads_g)])
+    raymarch.GRAPHED_MARCH = True
+    same = (torch.equal(by_mode[True][1], by_mode[False][1])
+            and all(torch.equal(a, b) for a, b in zip(by_mode[True][2], by_mode[False][2])))
+    out["graphed_step_ms"], out["eager_step_ms"] = by_mode[True][0], by_mode[False][0]
+    log(f"[train] one step at {n_rays} rays x k {k} ({iters} march iterations): the march as "
+        f"CUDA graphs {by_mode[True][0]:.1f} ms, op by op {by_mode[False][0]:.1f} ms; loss and "
+        f"gradients bit-equal: {same}")
+    check(same, "the graphed march's step differs from the op-by-op march's")
+    del by_mode, grads_g, draws
 
     # -- one card step against the CPU step, same state and draws (on the
     # first TRAIN_CHECK_VIEWS training views: the engines' set-up is per view)
@@ -682,7 +750,7 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
     (Session.load_file of a geometry scene JSON), a probe grid baked from
     the fox as the mesh's ambient light, the 720p hybrid sweep frame through
     K1 and K2 with the mesh's per-pixel t_stop, held to its plain versions,
-    to the live hybrid frame and (80x45) to the CPU; the BVH tier; the
+    to the live hybrid frame and (48x27) to the CPU; the BVH tier; the
     trained student's snapshot round trip; and the trainer's determinism."""
     import numpy as np
     import torch
@@ -741,7 +809,6 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
     t = time.perf_counter()
     first, depth = frame(renderer="sweep")
     out["first_frame_s"] = time.perf_counter() - t  # includes the R=256 bake
-    frame(renderer="sweep")
     times = []
     for _ in range(HYBRID_TIMED):
         t = time.perf_counter()
@@ -749,7 +816,7 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
         times.append(1e3 * (time.perf_counter() - t))
     out["launches"] = {"shade": shade_volume.launches, "sweep": sweep_composite_kernel.launches}
     out["frame_ms"], out["frame_ms_runs"] = statistics.median(times), times
-    n_frames = HYBRID_TIMED + 2
+    n_frames = HYBRID_TIMED + 1
     for name, n in out["launches"].items():
         check(n == n_frames, f"hybrid path: kernel {name} launched {n} times for {n_frames} "
                              f"frames")
@@ -823,9 +890,9 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
         f"{out['sweep_vs_live_psnr_db']:.2f} dB, SSIM {out['sweep_vs_live_ssim']:.4f}")
     check(out["sweep_vs_live_psnr_db"] > QUALITY_MIN_DB, "hybrid sweep vs live PSNR too low")
 
-    # 6. an 80x45 live hybrid frame against the same code on the CPU (the
+    # 6. a small live hybrid frame against the same code on the CPU (the
     # card's probe grid, copied)
-    cw, ch = CPU_SMALL
+    cw, ch = HYBRID_CPU_SMALL
     card = frame(cw, ch, renderer="live")[0].cpu()
     cpu_fox = Session(device="cpu")
     cpu_fox.load_snapshot(SNAP)
@@ -921,7 +988,7 @@ def baked_phase(sess, live0, cam, cpu_sess, bake_s, dev) -> dict:
     kernel frame against the plain frame, bit for bit; G2 and G1 on the
     first round's own ids, bit-equal and timed; the 720p frame timed,
     counted and split; PSNR / SSIM against the 720p live frame; the knobs
-    at 320x180; a trilinear R=128 bake; and an 80x45 frame against the
+    at 320x180; a trilinear R=128 bake; and 48x27 frames against the
     same code on the CPU."""
     import torch
 
@@ -1021,29 +1088,24 @@ def baked_phase(sess, live0, cam, cpu_sess, bake_s, dev) -> dict:
     synced = 1e3 * (time.perf_counter() - t)
     out["split_ms"] = {k: 1e3 * split["phase_s"][k] for k in BAKED_PHASES}
     out["host_wait_ms"] = 1e3 * main_stats["host_wait_s"]
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        frame()
-    events = prof.key_averages()
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    n_kernels = sum(e.count for e in events)
-    g_ms = {e.key: e.self_device_time_total / 1e3 for e in events if "gather_small" in e.key}
+    busy_ms, n_kernels, g2_ms = device_trace(frame, "gather_small")
     out["kernels_a_round"] = n_kernels / main_stats["rounds"]
     out["busy_ms"] = busy_ms if busy_ms > 0 else None
-    out["g2_device_ms"] = sum(g_ms.values()) if busy_ms > 0 else None
+    out["g2_device_ms"] = g2_ms if busy_ms > 0 else None
     log(f"[baked] {WIDTH}x{HEIGHT} spp1: median of {BAKED_TIMED} {out['frame_ms']:.1f} ms (runs "
         f"{[round(x, 1) for x in times]}), first {1e3 * out['first_frame_s']:.1f} ms; "
         f"{main_stats['rounds']} rounds, host waited {out['host_wait_ms']:.1f} ms for the device")
     log(f"[baked] where the time goes (one frame, the device synchronised after each part, "
         f"{synced:.1f} ms): " + ", ".join(f"{k} {v:.1f} ms" for k, v in out["split_ms"].items()))
     if busy_ms > 0:
-        log(f"[baked] trace: {n_kernels} device kernels ({out['kernels_a_round']:.0f} a round), "
+        log(f"[baked] trace: {n_kernels} device kernels and copies "
+            f"({out['kernels_a_round']:.0f} a round), "
             f"busy {busy_ms:.1f} ms = {100 * busy_ms / out['frame_ms']:.1f} % of the frame; "
             f"G2 {out['g2_device_ms']:.3f} ms = {100 * out['g2_device_ms'] / out['frame_ms']:.2f} %"
             f" of the frame")
     else:
-        log(f"[baked] trace: {n_kernels} device kernels ({out['kernels_a_round']:.0f} a round); "
+        log(f"[baked] trace: {n_kernels} device kernels and copies "
+            f"({out['kernels_a_round']:.0f} a round); "
             "device busy share: not measured (the trace holds no device time)")
     out["psnr_vs_live_db"] = float(metrics.psnr(img[..., :3], live0[..., :3]))
     out["ssim_vs_live"] = float(metrics.ssim(img[..., :3], live0[..., :3]))
@@ -1099,9 +1161,9 @@ def baked_phase(sess, live0, cam, cpu_sess, bake_s, dev) -> dict:
     check(out["trilinear_psnr_db"] > TRILINEAR_MIN_DB, "trilinear cull vs no cull")
     del tgrid, nocull, culled
 
-    # 5. the card against the CPU at 80x45, on the card's bake: the
-    # default knobs and the two batched advances
-    cw, ch = CPU_SMALL
+    # 5. the card against the CPU at BAKED_CPU_SMALL, on the card's bake:
+    # the default knobs and the two batched advances
+    cw, ch = BAKED_CPU_SMALL
     cpu_sess._baked = ({k: v.cpu() for k, v in grid.items()}, dict(meta))
     out["cpu_agree"] = {}
     for name, kw in (("default", {}), ("adv=scout", dict(adv="scout")),
@@ -1238,6 +1300,26 @@ def determinism_check(eng, state, dev, steps: int = DETERMINISM_STEPS, tag: str 
 
 
 # -- the image, SDF and volume modes and mesh export (Slice F) ----------------
+
+
+def device_trace(fn, name_part: str = "") -> tuple:
+    """fn() under a CUDA profiler trace -> (device busy ms, device events,
+    ms of the events whose name holds `name_part`), summed from the trace's
+    raw events: key_averages builds a Python object a record, which over a
+    720p live frame's trace took most of a minute."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+    busy = part = n = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            busy += e.duration_ns()
+            n += 1
+            if name_part and name_part in e.name():
+                part += e.duration_ns()
+    return busy / 1e6, n, part / 1e6
 
 
 def k2_bound_of(view, flip: bool, o_c, eb, ec, near, min_t, R: int, K: int,
@@ -2696,7 +2778,7 @@ def learners_phase(sess, tr, dev, cuda_ms) -> dict:
 def corner_phase(tr, dev, cuda_ms) -> dict:
     """A corner-layout copy of configs/nerf/base.json at full width (16
     levels x 2 features, 2^19 vertex rows) on the [train] phase's views: a
-    4-step warm bundle, one timed bundle of 16 steps at TRAIN_BATCH beside
+    4-step warm bundle, one timed bundle of CORNER_TIMED_STEPS steps at TRAIN_BATCH beside
     the cell student's ms a step, the hash encode's forward and backward
     at TRAIN_BATCH samples, one card step against the CPU (every leaf), two
     bundles from one seed bit-equal; then the field exported with
@@ -2729,7 +2811,7 @@ def corner_phase(tr, dev, cuda_ms) -> dict:
     eng.grid_interval = 4
     state, _, _ = eng.train_bundle(state, torch.Generator(device=dev).manual_seed(0))
     eng.grid_interval = 16
-    state, out["bundle"] = _timed_bundle("corner", eng, state, dev)
+    state, out["bundle"] = _timed_bundle("corner", eng, state, dev, CORNER_TIMED_STEPS)
     out["ms_per_step"] = out["bundle"]["ms_per_step"]
     out["cell_ms_per_step"] = tr["ms_per_step"]
     log(f"[corner] 16x2 corner-layout field, 2^19 rows, aabb {ds.aabb_scale}: "
@@ -2770,15 +2852,15 @@ def corner_phase(tr, dev, cuda_ms) -> dict:
         check(torch.equal(got[lv, :n], want[lv, :n]) and not bool(got[lv, n:].any()),
               f"[corner] level {lv} of the reloaded table is not the exported one in fp16")
     table0 = got.clone()
-    s.engine.grid_interval = 4  # a few steps show that it trains
-    loss = s.train(4)
+    s.engine.grid_interval = 2  # a few steps show that it trains
+    loss = s.train(2)
     torch.cuda.synchronize()
     out["ingp_train_s"] = time.perf_counter() - t
     out["ingp_loss"] = loss
     check(math.isfinite(loss) and not torch.equal(s.state["params"]["grid"], table0),
           "[corner] the reloaded field did not train")
     log(f"[corner] exported ({out['ingp_mb']:.1f} MB .ingp), reloaded by "
-        f"Session.load_snapshot and trained 4 steps in {out['ingp_train_s']:.1f} s: loss "
+        f"Session.load_snapshot and trained 2 steps in {out['ingp_train_s']:.1f} s: loss "
         f"{loss:.5f}")
     cam = look_at_matrix(EYES[0], [0.5, 0.5, 0.5])
     zero_kernel_counts()
@@ -2918,7 +3000,8 @@ def frontends_phase(sess, dev, png_root: Path, png_net: Path, tmp: Path) -> dict
     try:
         import cv2  # noqa: F401
         video = ["--video_camera_path", "orbit", "--video_output", str(tmp / "orbit.mp4"),
-                 "--video_fps", "4", "--video_n_seconds", "1", "--video_spp", "1",
+                 "--video_fps", str(FRONT_CLI_VIDEO_FRAMES), "--video_n_seconds", "1",
+                 "--video_spp", "1",
                  "--video_w", "320", "--video_h", "180"]
     except ImportError:
         log("[frontends] no OpenCV here: the CLI run writes no video")
@@ -2931,7 +3014,8 @@ def frontends_phase(sess, dev, png_root: Path, png_net: Path, tmp: Path) -> dict
     args = ["--scene", str(png_root), "--network", str(tmp / "cli_net.json"), "--device", str(dev),
             "--n_steps", "16", "--batch_size", "65536", "--save_snapshot",
             str(tmp / "cli.msgpack"), "--test_transforms", str(png_root / "transforms.json"),
-            "--eval_max_views", "2", "--eval_spp", "1", "--eval_downscale", "4",
+            "--eval_max_views", str(FRONT_CLI_EVAL_VIEWS), "--eval_spp", "1",
+            "--eval_downscale", "4",
             "--renderer", "baked", "--screenshot", str(tmp / "cli.png"),
             "--screenshot_w", "320", "--screenshot_h", "180"] + video
     t = time.perf_counter()
@@ -2949,12 +3033,368 @@ def frontends_phase(sess, dev, png_root: Path, png_net: Path, tmp: Path) -> dict
         while cap.read()[0]:
             n += 1
         cap.release()
-        check(n == 4, f"[frontends] the CLI's video has {n} frames, not 4")
+        check(n == FRONT_CLI_VIDEO_FRAMES,
+              f"[frontends] the CLI's video has {n} frames, not {FRONT_CLI_VIDEO_FRAMES}")
     log(f"[frontends] python -m sienerf_torch.run {' '.join(args[6:])}: {out['cli_s']:.1f} s")
     out["launches"] = kernel_counts()
     log(f"[frontends] launches on the front-ends' paths: {out['launches']}")
     for name in ("shade", "sweep", "gather_small"):
         check(out["launches"][name] >= 1, f"[frontends] {name} was never launched")
+    return out
+
+
+def _int_sum(t) -> int:
+    """A tensor's bits summed as int32 words (bf16 / bool widened): one
+    number a leaf that moves with any bit."""
+    import torch
+
+    if t.dtype in (torch.bool, torch.uint8, torch.int16, torch.bfloat16):
+        t = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        return int(t.to(torch.int64).sum())
+    return int(t.contiguous().view(torch.int32).to(torch.int64).sum())
+
+
+def _tree_sums(tree) -> list:
+    import torch
+
+    from sienerf_torch.ops.optim import tree_leaves
+
+    return [_int_sum(x) for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def _multi_rank(mesh, cfg):
+    """One rank of [multi] (parallel/mesh.py::run_ranks): the fox's R=256
+    bake, the sharded sweep, live and baked frames of view 0 (the main
+    path, counts from 0 before it and read after it), held to the one-device
+    frames on rank 0; K1 on this rank's plane range and K2 on its schedule
+    range against their plain versions; the sharded trainer on the
+    [multi] PNG scene: a step against the one-process mean of the
+    per-shard gradients (rank 0), a timed bundle beside a one-rank bundle,
+    the replicas' bit sums, two 2-step bundles from one seed."""
+    import dataclasses as dc
+
+    import torch
+    import torch.distributed as dist
+
+    from sienerf_torch.engines.nerf_baked import render_frame_baked, render_frame_baked_multichip
+    from sienerf_torch.engines.nerf_sweep import (
+        axis_view,
+        render_frame_sweep,
+        render_frame_sweep_multichip,
+        sweep_geometry,
+    )
+    from sienerf_torch.models.nerf_network import nerf_l2_mask
+    from sienerf_torch.ops.importance import splat_errors
+    from sienerf_torch.ops.optim import optim_step, tree_leaves, tree_unflatten
+    from sienerf_torch.ops.shade import shade_volume, shade_volume_plain
+    from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel, sweep_composite_plain
+    from sienerf_torch.parallel.mesh import (
+        all_gather,
+        all_mean,
+        ordered_mean,
+        ordered_sum,
+        rank_generator,
+        replicate,
+        shard_range,
+    )
+    from sienerf_torch.session import Session
+    from sienerf_torch.utils.camera import look_at_matrix
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, rank, world = mesh.device, mesh.rank, mesh.world
+    lead = rank == 0
+    out = {"rank": rank, "device": f"{dev} ({torch.cuda.get_device_name(dev)})"}
+
+    def sync():
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+
+    def timed(fn, reps=1):
+        """ms of fn() on every rank together: synchronised and a barrier on
+        both sides; the median of `reps`."""
+        return statistics.median(timed_call(fn)[0] for _ in range(reps))
+
+    def timed_call(fn):
+        sync()
+        t = time.perf_counter()
+        res = fn()
+        sync()
+        return 1e3 * (time.perf_counter() - t), res
+
+    sess = Session(device=dev)
+    sess.load_snapshot(SNAP)
+    t = time.perf_counter()
+    grid, meta = sess.bake(resolution=BAKE_RES)
+    torch.cuda.synchronize(dev)
+    out["bake_s"] = time.perf_counter() - t
+    eng, p, bf = sess.engine, sess.render_params(), sess.state["occ"]["bitfield"]
+    R, K = meta["resolution"], meta["n_cascades"]
+    Rv = R + 1
+    rows, scale = grid["rows"], grid["scale"]
+    cam = look_at_matrix(EYES[0], [0.5, 0.5, 0.5])
+    sw, sh = MULTI_SMALL
+    focal_s = tuple(f * sw / WIDTH for f in FOCAL)
+    baked_kw = dict(width=sw, height=sh, resolution=R, mode=meta["mode"], n_cascades=K)
+
+    def sweep_sh(min_t=None):
+        return render_frame_sweep_multichip(eng, p, grid, meta, cam, FOCAL, mesh, width=WIDTH,
+                                            height=HEIGHT, min_transmittance=min_t)
+
+    def live_sh():
+        return eng.render_frame_multichip(p, bf, sw, sh, cam, focal_s, mesh,
+                                          tile=MULTI_LIVE_TILE)
+
+    def baked_sh():
+        return render_frame_baked_multichip(eng, p, bf, grid, cam, focal_s, mesh, **baked_kw)
+
+    # -- the main path, counts from 0, each frame timed
+    sync()
+    zero_kernel_counts()
+    out["sweep_min_t0_ms"], sweep0 = timed_call(lambda: sweep_sh(0.0))
+    out["live_ms"], live = timed_call(live_sh)
+    out["baked_ms"], baked = timed_call(baked_sh)
+    out["launches"] = kernel_counts()
+    for name in ("shade", "sweep", "gather_small"):
+        check(out["launches"][name] >= 1, f"[multi] rank {rank}: kernel {name} was never "
+                                          f"launched on the sharded paths")
+    sums = torch.tensor([_int_sum(x) for x in (sweep0[0], live[0], baked[0])], device=dev)
+    check(all(torch.equal(g, sums) for g in all_gather(sums, mesh)),
+          "[multi] the sharded frames differ between ranks")
+
+    # -- against the one-device frames (rank 0; the others wait)
+    if lead:
+        one = render_frame_sweep(eng, p, grid, meta, cam, FOCAL, width=WIDTH, height=HEIGHT,
+                                 min_transmittance=0.0)
+        out["sweep_err"] = compare(f"[multi] sharded {WIDTH}x{HEIGHT} sweep (min "
+                                   f"transmittance 0) vs one device", sweep0[0], one[0],
+                                   **MULTI_SWEEP_TOL)
+        out["sweep_depth_err"] = compare("[multi] its depth", sweep0[1], one[1],
+                                         **MULTI_DEPTH_TOL)
+        check(float(sweep0[0][..., 3].mean()) > 0.05, "[multi] empty sweep frame")
+        one_live = eng.render_frame(p, bf, sw, sh, cam, focal_s)[0]
+        out["live_agree"] = frame_agreement(f"[multi] sharded {sw}x{sh} live vs render_frame",
+                                            live[0], one_live)
+        check(out["live_agree"] >= LIVE_MIN_AGREE, "[multi] the sharded live frame")
+        one_baked = render_frame_baked(eng, p, bf, grid, cam, focal_s, **baked_kw)[0]
+        out["baked_agree"] = frame_agreement(f"[multi] sharded {sw}x{sh} baked vs "
+                                             f"render_frame_baked", baked[0], one_baked)
+        check(out["baked_agree"] >= LIVE_MIN_AGREE, "[multi] the sharded baked frame")
+        check(float(live[0][..., 3].mean()) > 0.05 and float(baked[0][..., 3].mean()) > 0.05,
+              "[multi] empty live or baked frame")
+        del one, one_live, one_baked
+    sync()
+
+    # -- K1 on this rank's plane range, K2 on its schedule range (with bw)
+    acts = dict(density_act=eng.net.density_activation, rgb_act=eng.net.rgb_activation)
+    g0 = sweep_geometry(eng, cam, FOCAL, width=WIDTH, height=HEIGHT, device=dev)
+    p0, p1 = shard_range(K * Rv, world, rank)
+    part = shade_volume(rows, scale, g0["o"][0], p["rgb_mlp"], resolution=R, n_cascades=K,
+                        planes=(p0, p1), **acts)
+    whole = shade_volume(rows, scale, g0["o"][0], p["rgb_mlp"], resolution=R, n_cascades=K,
+                         **acts)
+    torch.cuda.synchronize(dev)
+    storage = whole.permute(0, 1, 3, 4, 2).reshape(K * Rv, Rv, Rv, 4)
+    check(torch.equal(part.permute(0, 2, 3, 1).contiguous().view(torch.int16),
+                      storage[p0:p1].contiguous().view(torch.int16)),
+          f"[multi] rank {rank}: K1 on planes [{p0}, {p1}) differs from the whole bake's")
+    out["k1_err"] = compare(f"[multi] rank {rank} K1 planes [{p0}, {p1}) vs plain", part,
+                            shade_volume_plain(rows, scale, g0["o"][0], p["rgb_mlp"],
+                                               resolution=R, n_cascades=K, planes=(p0, p1),
+                                               **acts), **K1_TOL)
+    s0, s1 = shard_range(K * R, world, rank)
+    args = (axis_view(whole, g0["axis"]), g0["o_c"], g0["eb"], g0["ec"],
+            max(0.05, eng.near_distance), eng.render_min_transmittance)
+    kw = dict(resolution=R, n_cascades=K, data_flip=g0["flip"], schedule=(s0, s1),
+              return_bw=True)
+    got = sweep_composite_kernel(*args, **kw)
+    torch.cuda.synchronize(dev)
+    want = sweep_composite_plain(*args, **kw)
+    out["k2_err"] = max(compare(f"[multi] rank {rank} K2 schedule [{s0}, {s1}) {name} vs plain",
+                                a, b.contiguous(), **K2_TOL)
+                        for name, a, b in zip(("C", "opacity", "T", "depth_t", "bw"), got, want))
+    del part, whole, storage, args, got, want
+
+    # -- the sweep frame at the default min transmittance, every rank together
+    out["sweep_ms"] = timed(sweep_sh)
+    out["sweep_one_ms"] = timed(lambda: lead and render_frame_sweep(
+        eng, p, grid, meta, cam, FOCAL, width=WIDTH, height=HEIGHT), reps=3)
+    del sess, grid, rows, scale, p, bf, sweep0, live, baked
+    torch.cuda.empty_cache()
+
+    # -- the trainer at the engine's 2^18-sample batch, as the JAX package
+    # shards it: a step's rays split over the ranks (n_rays / world each),
+    # each rank packing its rays' samples into its own batch, so the ranks
+    # together take the one-rank bundle's rays and samples
+    tsess = Session(device=dev)
+    tsess.load_file(cfg["scene"], network=cfg["net"], train_batch_size=TRAIN_BATCH)
+    teng, st = tsess.engine, tsess.state
+    replicate(st, mesh)
+    n_rays, k, iters = teng._phase_geometry()
+    n_local = max(64, n_rays // world)
+    # every rank's draws, as each rank draws them: its generator folded
+    # from one seeded generator
+    draws = [teng.draw_step(rank_generator(torch.Generator(device=dev).manual_seed(11),
+                                           dc.replace(mesh, rank=r)), n_local, st["step"])
+             for r in range(world)]
+    new, loss, cnt = teng.train_step(st, draws[rank], k, iters, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    if lead:
+        per = [teng.loss_and_grads(st, d, k, iters) for d in draws]
+        mean = tree_unflatten(st["params"], [ordered_mean(list(g)) for g in zip(
+            *[tree_leaves(gr) for _, gr, _ in per])])
+        params, _ = optim_step(teng.opt, st["opt"], st["params"], mean,
+                               nerf_l2_mask(st["params"]), None)
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(new["params"]),
+                                                      tree_leaves(params)))
+        same &= bool(torch.equal(loss, ordered_mean([lo for lo, _, _ in per])))
+        same &= bool(torch.equal(cnt, ordered_mean([a[0].float().mean() for _, _, a in per])))
+        if "emap" in st:
+            zero = {"error": torch.zeros_like(st["emap"]["error"]), "decay": 0.0}
+            adds = [splat_errors(zero, *a[2], a[1].detach())["error"] for _, _, a in per]
+            err = st["emap"]["error"] * st["emap"]["decay"] + ordered_sum(adds)
+            same &= bool(torch.equal(new["emap"]["error"], err))
+        out["step_equals_mean"] = same
+        check(same, "[multi] the sharded step is not the one-process mean of the per-shard "
+                    "gradients, bit for bit")
+        del per, mean, params
+    flat = torch.cat([g.reshape(-1) for g in tree_leaves(new["params"])])
+    out["collective_mb"] = flat.numel() * 4 / 1e6
+    out["collective_ms"] = timed(lambda: all_mean(flat, mesh))
+    del new, flat
+    sums = torch.tensor(_tree_sums(st["params"]), device=dev)
+    check(all(torch.equal(g, sums) for g in all_gather(sums, mesh)),
+          "[multi] the replicated state differs between ranks")
+
+    # a timed sharded bundle, then a one-rank bundle at the full batch on
+    # rank 0 alone (the others wait at the barrier)
+    teng.grid_interval = MULTI_TIMED_STEPS
+    gen = torch.Generator(device=dev).manual_seed(5)
+    box = {}
+
+    def sharded():
+        box["st"], box["loss"], box["cnt"] = teng.train_bundle_multichip(st, gen, mesh)
+
+    out["bundle_ms_per_step"] = timed(sharded) / MULTI_TIMED_STEPS
+    out["bundle_loss"] = float(box["loss"])
+    check(math.isfinite(out["bundle_loss"]), "[multi] non-finite sharded loss")
+    sums = torch.tensor(_tree_sums(box["st"]["params"]) + _tree_sums(box["st"]["occ"])
+                        + _tree_sums(box["st"].get("emap", {})), device=dev)
+    out["replica_sums_equal"] = all(torch.equal(g, sums) for g in all_gather(sums, mesh))
+    check(out["replica_sums_equal"], "[multi] the replicas differ after a sharded bundle")
+    del box
+    if lead:
+        osess = Session(device=dev)
+        osess.load_file(cfg["scene"], network=cfg["net"], train_batch_size=TRAIN_BATCH)
+        osess.engine.grid_interval = MULTI_TIMED_STEPS
+    out["one_rank_ms_per_step"] = timed(lambda: lead and osess.engine.train_bundle(
+        osess.state, torch.Generator(device=dev).manual_seed(5))) / MULTI_TIMED_STEPS
+    if lead:
+        del osess
+    # two sharded 2-step bundles from one state and seed: the same bits
+    runs = []
+    teng.grid_interval = DETERMINISM_STEPS
+    for _ in range(2):
+        s_run, l_run, _ = teng.train_bundle_multichip(
+            replicate(teng.init(0), mesh), torch.Generator(device=dev).manual_seed(9), mesh)
+        runs.append((_tree_sums(s_run["params"]) + _tree_sums(s_run["occ"])
+                     + _tree_sums(s_run.get("emap", {})), float(l_run)))
+    out["bundles_repeat"] = runs[0] == runs[1]
+    check(out["bundles_repeat"], f"[multi] rank {rank}: two sharded runs from one seed differ")
+    torch.cuda.synchronize(dev)
+    return out
+
+
+def multi_phase(sess) -> dict:
+    """[multi]: the multi-device paths on max(2, cards) ranks, one process
+    a rank (parallel/mesh.py::run_ranks): NCCL with a card a rank, or on a
+    one-card machine two ranks on cuda:0 joined through gloo (which carries
+    their CUDA tensors' collectives through host memory; the ranks' kernels
+    run on the card).  The choice is made by card count before any rank starts; a
+    backend that fails to start raises.  `sess` holds the fox with its
+    R=256 bake (the scene's views are rendered from it)."""
+    import concurrent.futures as futures
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from sienerf_torch.io.nerf_dataset import ngp_matrix_to_nerf
+    from sienerf_torch.io.png import write_png
+    from sienerf_torch.parallel.mesh import run_ranks
+
+    n_cards = torch.cuda.device_count()
+    world = max(2, n_cards)
+    if n_cards >= 2:
+        backend, devices = "nccl", [f"cuda:{i}" for i in range(world)]
+    else:
+        backend, devices = "gloo", ["cuda:0"] * world
+    log(f"[multi] {world} ranks on {n_cards} card(s): backend {backend}, devices {devices}"
+        + ("" if n_cards >= 2 else " (one card: the ranks share it, so no speedup is "
+           "expected; the figures are not a scaling result)"))
+    out = {"world": world, "backend": backend, "devices": devices}
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        root = tmp / "multi_scene"
+        root.mkdir()
+        vw, vh = MULTI_VIEW_RES
+        focal = tuple(f * vw / WIDTH for f in FOCAL)
+        cams = fibonacci_cameras(MULTI_VIEWS, 2.2)
+        imgs = [sess.render(vw, vh, c, focal, renderer="sweep").cpu().numpy() for c in cams]
+        q = [np.clip(np.rint(im * 255.0), 0, 255).astype(np.uint8) for im in imgs]
+        scale_, offset = 0.33, np.asarray([0.5, 0.5, 0.5], np.float32)
+        frames = []
+        for i, c in enumerate(cams):
+            m = np.eye(4, dtype=np.float32)
+            m[:3] = ngp_matrix_to_nerf(np.asarray(c, np.float32), scale_, offset)
+            frames.append({"file_path": f"v{i:03d}", "transform_matrix": m.tolist()})
+        with futures.ThreadPoolExecutor(max_workers=8) as ex:
+            list(ex.map(lambda i: write_png(root / f"v{i:03d}.png", q[i], level=1),
+                        range(len(q))))
+        (root / "transforms.json").write_text(_json.dumps(
+            {"fl_x": focal[0], "fl_y": focal[1], "w": vw, "h": vh, "aabb_scale": 4,
+             "scale": scale_, "offset": offset.tolist(), "frames": frames}))
+        (tmp / "net.json").write_text(_json.dumps(sess.network_config))
+        out["scene_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        ranks = run_ranks(_multi_rank, world, backend, devices,
+                          {"scene": str(root), "net": str(tmp / "net.json")},
+                          timeout_s=MULTI_TIMEOUT_S)
+        out["ranks_s"] = time.perf_counter() - t
+    r0 = ranks[0]
+    out["ranks"] = ranks
+    out["launches"] = {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+    out["launches_by_rank"] = [r["launches"] for r in ranks]
+    for k in ("sweep_ms", "sweep_min_t0_ms", "live_ms", "baked_ms", "sweep_one_ms",
+              "bundle_ms_per_step",
+              "one_rank_ms_per_step", "collective_ms", "collective_mb", "sweep_err",
+              "sweep_depth_err", "live_agree", "baked_agree", "step_equals_mean",
+              "replica_sums_equal", "bundles_repeat"):
+        out[k] = r0[k]
+    out["k1_err"] = max(r["k1_err"] for r in ranks)
+    out["k2_err"] = max(r["k2_err"] for r in ranks)
+    for r in ranks:
+        log(f"[multi] rank {r['rank']} on {r['device']}: bake {r['bake_s']:.2f} s, launches "
+            f"{r['launches']}, K1 planes max abs err {r['k1_err']:.3g}, K2 schedule "
+            f"{r['k2_err']:.3g}")
+    log(f"[multi] frames of view 0, every rank together: sharded {WIDTH}x{HEIGHT} sweep "
+        f"{out['sweep_ms']:.2f} ms (one device {out['sweep_one_ms']:.2f} ms; the main path's "
+        f"first, at min transmittance 0, {out['sweep_min_t0_ms']:.2f} ms), sharded "
+        f"{MULTI_SMALL[0]}x{MULTI_SMALL[1]} live {out['live_ms']:.1f} ms, baked "
+        f"{out['baked_ms']:.1f} ms; sweep at min transmittance 0 vs one device max abs err "
+        f"{out['sweep_err']:.3g} (depth {out['sweep_depth_err']:.3g}), live "
+        f"{100 * out['live_agree']:.2f} % / baked {100 * out['baked_agree']:.2f} % of pixels "
+        f"within FRAME_TOL")
+    log(f"[multi] training (a {TRAIN_BATCH}-sample batch, the rays split over {world} ranks): "
+        f"sharded bundle "
+        f"{out['bundle_ms_per_step']:.1f} ms a step, one-rank bundle "
+        f"{out['one_rank_ms_per_step']:.1f} ms a step; the gradient mean "
+        f"({out['collective_mb']:.1f} MB a rank) {out['collective_ms']:.1f} ms; step = "
+        f"one-process mean bit for bit: {out['step_equals_mean']}; replicas equal: "
+        f"{out['replica_sums_equal']}; two runs from one seed equal: {out['bundles_repeat']}")
+    log(f"[multi] launches on the sharded paths: {out['launches_by_rank']}; scene "
+        f"{out['scene_s']:.1f} s, ranks {out['ranks_s']:.1f} s")
     return out
 
 
@@ -2973,7 +3413,14 @@ def frame_agreement(name, got, want) -> float:
 
 
 def main() -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on the card.")
+    ap.add_argument("--phase", choices=("all", "multi"), default="all",
+                    help="'multi' builds the kernels and runs [multi] alone")
+    phase = ap.parse_args().phase
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3031,6 +3478,8 @@ def main() -> int:
     k1_blocks, k1_threads = kernel_occupancy()
     log(f"  shade: {k1_blocks} blocks of {k1_threads} threads "
         f"({k1_blocks * k1_threads // 32} warps) fit an SM")
+    if phase == "multi":
+        return multi_only(smi, t_all)
 
     # -- 2b. G1 and G2 against their plain versions at the probe's shapes
     # (bit-equal: a gather copies bits), then the probe's entry point with
@@ -3261,15 +3710,10 @@ def main() -> int:
     del few, many
     # the device's busy share of a tile-2^17 frame: the kernels' summed time in
     # a profiler trace over the untraced frame's median time
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        live_frame(cams[0], tile=LIVE_BIG_TILE)
-    events = prof.key_averages()
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    n_kernels = sum(e.count for e in events)
+    busy_ms, n_kernels, _ = device_trace(lambda: live_frame(cams[0], tile=LIVE_BIG_TILE))
     if busy_ms > 0:
-        log(f"[live] tile 2^17 trace: {n_kernels} device kernels, busy {busy_ms:.1f} ms = "
+        log(f"[live] tile 2^17 trace: {n_kernels} device kernels and copies, busy "
+            f"{busy_ms:.1f} ms = "
             f"{100 * busy_ms / statistics.median(big_ms):.1f} % of the frame "
             f"({n_kernels / big_stats['rounds']:.0f} kernels a round)")
     else:
@@ -3300,11 +3744,17 @@ def main() -> int:
           == [0, 3, 15, 0], "argmax breaks ties differently on the card")
 
     # -- 7c. quality: the sweep frame against the live frame, three views
+    # (view 0 at 1280x720, the others at QUALITY_SMALL)
     quality = []
+    qw, qh = QUALITY_SMALL
+    q_focal = tuple(f * qw / WIDTH for f in FOCAL)
     for i, cam in enumerate(cams):
         # through the large tile: per-ray results do not depend on it
-        lv = live0 if i == 0 else live_frame(cam, tile=LIVE_BIG_TILE)
-        sw_img = frames[i, 1]
+        if i == 0:
+            lv, sw_img = live0, frames[0, 1]
+        else:
+            lv = sess.render(qw, qh, cam, q_focal, renderer="live", tile=LIVE_BIG_TILE)
+            sw_img = sess.render(qw, qh, cam, q_focal, spp=1, renderer="sweep")
         db = metrics.psnr(sw_img[..., :3], lv[..., :3])
         ss = metrics.ssim(sw_img[..., :3], lv[..., :3])
         quality.append((db, ss))
@@ -3481,6 +3931,12 @@ def main() -> int:
         f"{sum(modes_s.values()):.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in modes_s.items())}); launches of K1, K2, "
         f"G1, G2 on their paths: none")
+    # -- 12. the multi-device paths on their own ranks
+    torch.cuda.empty_cache()
+    t = time.time()
+    mu = multi_phase(sess)
+    mu["phase_s"] = time.time() - t
+    log(f"[multi] phase in {mu['phase_s']:.1f} s ({smi})")
     log(f"[done] {time.time() - t_all:.1f} s")
 
     kernels = [
@@ -3576,8 +4032,36 @@ def main() -> int:
                     "learners": ln, "corner": cn, "frontends": fe}))
     for k in kernels:  # the image, SDF, volume and mesh paths launch none
         k["launches_modes_paths"] = sum(m["launches"][k["name"]] for m in modes.values())
+        k["launches_multi_path"] = mu["launches"][k["name"]]
+        k["launches_multi_path_by_rank"] = [r[k["name"]] for r in mu["launches_by_rank"]]
+    kernels[0]["max_abs_err_multi_planes"] = mu["k1_err"]
+    kernels[1]["max_abs_err_multi_schedule"] = mu["k2_err"]
+    log(json.dumps({"multi": {k: v for k, v in mu.items() if k != "ranks"}}))
     log(smi)
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def multi_only(smi: str, t_all: float) -> int:
+    """--phase multi: the fox snapshot and its R=256 bake, then [multi]
+    alone; the same last line."""
+    import torch
+
+    from sienerf_torch.session import Session
+
+    sess = Session(device="cuda")
+    sess.load_snapshot(SNAP)
+    sess.bake(resolution=BAKE_RES)
+    t = time.time()
+    mu = multi_phase(sess)
+    mu["phase_s"] = time.time() - t
+    log(f"[multi] phase in {mu['phase_s']:.1f} s ({smi})")
+    log(f"[done] {time.time() - t_all:.1f} s")
+    print(json.dumps({"multi": {k: v for k, v in mu.items() if k != "ranks"}}))
+    log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -220,7 +220,7 @@ __device__ __forceinline__ void hidden_layer(const uint32_t (&a_in)[2][KT][4],
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) shade_kernel(
     const int16_t* __restrict__ rows, const float* __restrict__ scale,
     const float* __restrict__ cam, const uint32_t* __restrict__ wpacked,
-    uint2* __restrict__ out, int R, int K, long long n_vert, int dact, int ract) {
+    uint2* __restrict__ out, int R, int K, long long n_vert, int p0, int dact, int ract) {
   __shared__ __align__(16) uint32_t s_w[W_WORDS];
   __shared__ __align__(16) uint32_t s_x[WARPS][TILE * XPITCH];
   __shared__ __align__(16) uint4 s_ring_raw[WARPS][2 * 64];
@@ -266,7 +266,8 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) shade_kernel(
   // tile.
   const long long v_first = (long long)tile * TILE;
   uint32_t r0 = (uint32_t)(v_first % plane);
-  uint32_t i0 = (uint32_t)(v_first / plane % Rv), m0 = (uint32_t)(v_first / plane / Rv);
+  const uint32_t gp0 = (uint32_t)(v_first / plane) + (uint32_t)p0;  // a plane of the bake
+  uint32_t i0 = gp0 % Rv, m0 = gp0 / Rv;
 
   // The ring of this warp's kept vertices: raw row, (m << 16 | i, j << 16 | k)
   // and vertex id of up to 64 of them.  A batch is the 32 rows from `head`
@@ -1033,6 +1034,7 @@ __device__ __forceinline__ void gen_producer(GenCtl& ctl, const uint8_t* weights
                                              uint8_t* raw_all, uint8_t* ring_all,
                                              int n_stage_slots, const int16_t* __restrict__ rows,
                                              uint2* __restrict__ out, int R, long long n_vert,
+                                             int p0,
                                              int dact, int ract, int stall_ns) {
   // without consumers (the net without hidden layers) a producer warp
   // shades its batches itself, through its own X tile
@@ -1065,7 +1067,8 @@ __device__ __forceinline__ void gen_producer(GenCtl& ctl, const uint8_t* weights
       if (tile + d * stride < n_tiles) issue(tile + d * stride, d);
   const long long v_first = (long long)tile * TILE;
   uint32_t r0 = (uint32_t)(v_first % plane);
-  uint32_t i0 = (uint32_t)(v_first / plane % Rv), m0 = (uint32_t)(v_first / plane / Rv);
+  const uint32_t gp0 = (uint32_t)(v_first / plane) + (uint32_t)p0;  // a plane of the bake
+  uint32_t i0 = gp0 % Rv, m0 = gp0 / Rv;
   int head = 0, count = 0;
 
   for (int n = 0;; ++n) {
@@ -1270,6 +1273,7 @@ __global__ void __launch_bounds__(GenShape<W, NCONS, P>::THREADS, 1) shade_gener
     const int16_t* __restrict__ rows, const float* __restrict__ scale,
     const float* __restrict__ cam, const uint16_t* __restrict__ wpacked, int w_bytes,
     int n_hidden, int n_stage_slots, uint2* __restrict__ out, int R, int K, long long n_vert,
+    int p0,
     int dact, int ract, int stall_ns) {
   using Shape = GenShape<W, NCONS, P>;
   __shared__ GenCtl ctl;
@@ -1308,7 +1312,7 @@ __global__ void __launch_bounds__(GenShape<W, NCONS, P>::THREADS, 1) shade_gener
   __syncthreads();
   if (threadIdx.x >= 128 * NCONS) {
     set_registers<Shape::PROD_REGS, Shape::LAUNCH_REGS>();
-    gen_producer<NCONS, P>(ctl, g_dyn, stages, raw, ring, n_stage_slots, rows, out, R, n_vert,
+    gen_producer<NCONS, P>(ctl, g_dyn, stages, raw, ring, n_stage_slots, rows, out, R, n_vert, p0,
                            dact, ract, stall_ns);
   } else if constexpr (NCONS > 0) {
     set_registers<Shape::CONS_REGS, Shape::LAUNCH_REGS>();
@@ -1342,7 +1346,7 @@ constexpr int WIDE_RING_BYTES = 64 * 32 + 64 * 8 + 64 * 8;  // raw rows, pos, ve
 __global__ void __launch_bounds__(32 * WIDE_MAX_WARPS, 1) shade_wide_kernel(
     const int16_t* __restrict__ rows, const float* __restrict__ scale,
     const float* __restrict__ cam, const uint32_t* __restrict__ wpacked, int w_words,
-    int n_hidden, int width, uint2* __restrict__ out, int R, int K, long long n_vert,
+    int n_hidden, int width, uint2* __restrict__ out, int R, int K, long long n_vert, int p0,
     int dact, int ract) {
   extern __shared__ __align__(16) uint32_t g_smem[];
   const int warps = blockDim.x >> 5;
@@ -1388,7 +1392,8 @@ __global__ void __launch_bounds__(32 * WIDE_MAX_WARPS, 1) shade_wide_kernel(
   int tile = blockIdx.x * warps + warp;
   const long long v_first = (long long)tile * TILE;
   uint32_t r0 = (uint32_t)(v_first % plane);
-  uint32_t i0 = (uint32_t)(v_first / plane % Rv), m0 = (uint32_t)(v_first / plane / Rv);
+  const uint32_t gp0 = (uint32_t)(v_first / plane) + (uint32_t)p0;  // a plane of the bake
+  uint32_t i0 = gp0 % Rv, m0 = gp0 / Rv;
   int head = 0, count = 0;
   const int n_pairs = width / 16;  // pairs of n8 output tiles of a hidden layer
 
@@ -1677,16 +1682,31 @@ extern "C" int shade_blocks_per_sm() {
   return n;
 }
 
+// The vertices a launch shades: vertex planes [plane0, plane0 + n_planes) of
+// the K*(R+1) planes of the bake, each (R+1)^2 rows of 32 bytes (a plane
+// starts 32-byte aligned).  Returns the planes' first row and their vertex
+// count, or a null pointer when the range is not in the bake.
+static const int16_t* plane_range(const void* rows, int resolution, int n_cascades,
+                                  int plane0, int n_planes, long long* n_vert) {
+  const long long Rv = resolution + 1;
+  if (plane0 < 0 || n_planes < 1 || (long long)plane0 + n_planes > n_cascades * Rv)
+    return nullptr;
+  *n_vert = (long long)n_planes * Rv * Rv;
+  return (const int16_t*)rows + (long long)plane0 * Rv * Rv * NF;
+}
+
 // rows (K*(R+1)^3, 16) int16, scale (K, 16) f32, cam (3,) f32, wpacked the
-// 13,312-byte fragment-order weights, out K*(R+1)^3 vertices x 4 bf16.
+// 13,312-byte fragment-order weights, out n_planes*(R+1)^2 vertices x 4 bf16:
+// planes [plane0, plane0 + n_planes) of the bake.
 extern "C" int shade_volume_launch(const void* rows, const void* scale,
                                    const void* cam, const void* wpacked, void* out,
-                                   int resolution, int n_cascades,
+                                   int resolution, int n_cascades, int plane0, int n_planes,
                                    int density_act, int rgb_act, int n_sms,
                                    void* stream) {
   if (n_cascades > MAX_CASCADES || resolution > 65534) return (int)cudaErrorInvalidValue;
-  const long long Rv = resolution + 1;
-  const long long n_vert = (long long)n_cascades * Rv * Rv * Rv;
+  long long n_vert = 0;
+  const int16_t* first = plane_range(rows, resolution, n_cascades, plane0, n_planes, &n_vert);
+  if (first == nullptr) return (int)cudaErrorInvalidValue;
   static const int resident = shade_blocks_per_sm();  // asked once
   const int per_sm = resident < 1 ? 1 : resident;
   if ((n_vert + TILE - 1) / TILE > 0x7FFFFFFFLL - 65536) return (int)cudaErrorInvalidValue;
@@ -1694,8 +1714,8 @@ extern "C" int shade_volume_launch(const void* rows, const void* scale,
   const long long have = (long long)n_sms * per_sm;
   const int grid = (int)(want < have ? want : have);
   shade_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)rows, (const float*)scale, (const float*)cam,
-      (const uint32_t*)wpacked, (uint2*)out, resolution, n_cascades, n_vert,
+      first, (const float*)scale, (const float*)cam,
+      (const uint32_t*)wpacked, (uint2*)out, resolution, n_cascades, n_vert, plane0,
       density_act, rgb_act);
   return (int)cudaGetLastError();
 }
@@ -1786,13 +1806,14 @@ extern "C" int shade_general_config(int w_words, int width, int n_hidden, int* o
 
 // The general path: wpacked holds w_words 32-bit words (pack_shade_weights
 // with layout "wgmma" for n_hidden hidden layers of padded width `width`:
-// 64, 128 or 256; "fragment" for a net without hidden layers, width 32).
-// stall_ns > 0 delays producer warp 0's writes (the checks' hook).
+// 64, 128 or 256; "fragment" for a net without hidden layers, width 32);
+// planes as shade_volume_launch's.  stall_ns > 0 delays producer warp 0's
+// writes (the checks' hook).
 extern "C" int shade_general_launch(const void* rows, const void* scale, const void* cam,
                                     const void* wpacked, int w_words, int n_hidden,
                                     int width, void* out, int resolution, int n_cascades,
-                                    int density_act, int rgb_act, int n_sms, int stall_ns,
-                                    void* stream) {
+                                    int plane0, int n_planes, int density_act, int rgb_act,
+                                    int n_sms, int stall_ns, void* stream) {
   const GenInstance in = gen_pick(width, n_hidden);
   if (in.fn == nullptr || n_cascades > MAX_CASCADES || resolution > 65534 ||
       w_words % 4 != 0 || n_hidden < 0 || ((uintptr_t)rows & 15) != 0 ||
@@ -1804,20 +1825,21 @@ extern "C" int shade_general_launch(const void* rows, const void* scale, const v
   if (cudaFuncSetAttribute(in.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
       cudaSuccess)
     return (int)cudaGetLastError();
-  const long long Rv = resolution + 1;
-  long long n_vert = (long long)n_cascades * Rv * Rv * Rv;
+  long long n_vert = 0;
+  const int16_t* rows_p = plane_range(rows, resolution, n_cascades, plane0, n_planes, &n_vert);
+  if (rows_p == nullptr) return (int)cudaErrorInvalidValue;
   const long long n_tiles = (n_vert + TILE - 1) / TILE;
   if (n_tiles > 0x7FFFFFFFLL - 65536) return (int)cudaErrorInvalidValue;
   const long long want = (n_tiles + in.producers - 1) / in.producers;
   const int grid = (int)(want < n_sms ? want : n_sms);
-  const int16_t* rows_p = (const int16_t*)rows;
   const float* scale_p = (const float*)scale;
   const float* cam_p = (const float*)cam;
   const uint16_t* w_p = (const uint16_t*)wpacked;
   int w_bytes = w_words * 4;
   uint2* out_p = (uint2*)out;
   void* args[] = {&rows_p, &scale_p, &cam_p, &w_p, &w_bytes, &n_hidden, &stages, &out_p,
-                  &resolution, &n_cascades, &n_vert, &density_act, &rgb_act, &stall_ns};
+                  &resolution, &n_cascades, &n_vert, &plane0, &density_act, &rgb_act,
+                  &stall_ns};
   return (int)cudaLaunchKernel(in.fn, dim3(grid), dim3(in.threads), args, (size_t)smem,
                                (cudaStream_t)stream);
 }
@@ -1860,11 +1882,12 @@ extern "C" int shade_wide_config(int w_words, int width, int* out_smem,
 
 // The wide path: wpacked holds w_words 32-bit words (pack_shade_weights
 // with layout "fragment" for n_hidden hidden layers of padded width
-// `width`, a multiple of 16).
+// `width`, a multiple of 16); planes as shade_volume_launch's.
 extern "C" int shade_wide_launch(const void* rows, const void* scale, const void* cam,
                                     const void* wpacked, int w_words, int n_hidden,
                                     int width, void* out, int resolution, int n_cascades,
-                                    int density_act, int rgb_act, int n_sms, void* stream) {
+                                    int plane0, int n_planes, int density_act, int rgb_act,
+                                    int n_sms, void* stream) {
   if (n_cascades > MAX_CASCADES || resolution > 65534 || width % 16 != 0 || width < 16 ||
       w_words % 4 != 0)
     return (int)cudaErrorInvalidValue;
@@ -1874,16 +1897,17 @@ extern "C" int shade_wide_launch(const void* rows, const void* scale, const void
   if (cudaFuncSetAttribute(shade_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem) != cudaSuccess)
     return (int)cudaGetLastError();
-  const long long Rv = resolution + 1;
-  const long long n_vert = (long long)n_cascades * Rv * Rv * Rv;
+  long long n_vert = 0;
+  const int16_t* first = plane_range(rows, resolution, n_cascades, plane0, n_planes, &n_vert);
+  if (first == nullptr) return (int)cudaErrorInvalidValue;
   if ((n_vert + TILE - 1) / TILE > 0x7FFFFFFFLL - 65536) return (int)cudaErrorInvalidValue;
   const long long want = (n_vert + 32 * warps - 1) / (32 * warps);
   const long long have = (long long)n_sms * per_sm;
   const int grid = (int)(want < have ? want : have);
   shade_wide_kernel<<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
-      (const int16_t*)rows, (const float*)scale, (const float*)cam,
+      first, (const float*)scale, (const float*)cam,
       (const uint32_t*)wpacked, w_words, n_hidden, width, (uint2*)out, resolution,
-      n_cascades, n_vert, density_act, rgb_act);
+      n_cascades, n_vert, plane0, density_act, rgb_act);
   return (int)cudaGetLastError();
 }
 

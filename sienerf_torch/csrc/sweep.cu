@@ -25,7 +25,10 @@
 //            matmuls bit for bit.
 // The inner-square cascade-ownership zeroing, the phase blend of planes j
 // and j+1 in bf16, the t_stop cap and the data flip (read data plane R-j)
-// follow the plain version.  A sample that cannot contribute (out of the
+// follow the plain version.  The schedule may be a contiguous slice of
+// slab_schedule's (a rank's share of the sharded sweep, composited from
+// T = 1), and the best weight may be written beside the maps (the sharded
+// sweep folds the ranks' partials with it).  A sample that cannot contribute (out of the
 // lattice, zeroed, in front of `near`, behind `t_stop`) adds exactly
 // nothing there, so it is skipped; once T < minT every later alpha is 0.
 //
@@ -189,7 +192,7 @@ __global__ void __launch_bounds__(BLOCK) sweep_kernel(
     const float* __restrict__ eb, const float* __restrict__ ec,
     const float* __restrict__ t_stop, int Hi, int Wi, int R, float near_d,
     float min_t, float phase, int data_flip, float* __restrict__ C, float* __restrict__ op_out,
-    float* __restrict__ t_out, float* __restrict__ bt_out) {
+    float* __restrict__ t_out, float* __restrict__ bt_out, float* __restrict__ bw_out) {
   // shared, built once a block from what every pixel shares: per schedule
   // entry its x_rel, packed cascade | inner << 8 | j << 16 and the offsets
   // of its data plane (and of the next one, for the phase blend); per
@@ -219,11 +222,16 @@ __global__ void __launch_bounds__(BLOCK) sweep_kernel(
     en.base = m * st.k + jd * st.s;
     s_e[s] = en;
     s_base2[s] = m * st.k + jn * st.s;
-    if (j == 0) {
-      // x / 2^k == x * 2^-k bit for bit; any other pitch keeps the division
-      const float rp = (__float_as_uint(pitch) & 0x7FFFFFu) == 0u ? 1.f / pitch : 0.f;
-      s_casc[m] = make_float4(pitch, rp, 0.5f - 0.5f * pitch * Rf, 0.f);
-    }
+  }
+  // Every cascade's pitch from its own formula (slab_schedule's f32 of
+  // 2^m / R), not from the schedule: a slice of the schedule (a rank's
+  // share of the sharded sweep) need not hold any cascade's slab 0, and
+  // the intervals below are computed for every cascade.
+  for (int m = tid; m < K; m += BLOCK) {
+    const float pitch = (float)(ldexp(1.0, m) / (double)R);
+    // x / 2^k == x * 2^-k bit for bit; any other pitch keeps the division
+    const float rp = (__float_as_uint(pitch) & 0x7FFFFFu) == 0u ? 1.f / pitch : 0.f;
+    s_casc[m] = make_float4(pitch, rp, 0.5f - 0.5f * pitch * Rf, 0.f);
   }
   __syncthreads();
 
@@ -435,6 +443,7 @@ __global__ void __launch_bounds__(BLOCK) sweep_kernel(
     op_out[pix] = op;
     t_out[pix] = T;
     bt_out[pix] = bt;
+    if (bw_out != nullptr) bw_out[pix] = bw;
   }
 }
 
@@ -447,7 +456,8 @@ template <bool CL, bool LINEAR, bool PHASE>
 cudaError_t launch(const void* vol, const Strides& st, const void* sched, int S,
                    int K, const void* o_c, const void* eb, const void* ec,
                    const void* t_stop, int hi, int wi, int R, float near_d,
-                   float min_t, float phase, int data_flip, void* C, void* op, void* T, void* bt, cudaStream_t stream) {
+                   float min_t, float phase, int data_flip, void* C, void* op, void* T, void* bt,
+                   void* bw, cudaStream_t stream) {
   const size_t bytes = smem_bytes(S, K);
   auto kern = sweep_kernel<CL, LINEAR, PHASE>;
   if (bytes > 48 * 1024) {
@@ -459,7 +469,7 @@ cudaError_t launch(const void* vol, const Strides& st, const void* sched, int S,
   kern<<<grid, BLOCK, bytes, stream>>>(
       (const __nv_bfloat16*)vol, st, (const float*)sched, S, K, (const float*)o_c,
       (const float*)eb, (const float*)ec, (const float*)t_stop, hi, wi, R, near_d,
-      min_t, phase, data_flip, (float*)C, (float*)op, (float*)T, (float*)bt);
+      min_t, phase, data_flip, (float*)C, (float*)op, (float*)T, (float*)bt, (float*)bw);
   return cudaGetLastError();
 }
 
@@ -468,20 +478,21 @@ cudaError_t launch(const void* vol, const Strides& st, const void* sched, int S,
 // vol: bf16 volume with element strides (sk, ss, sc, su, sv) over
 // (cascade, slab, channel, u, v); channel_last != 0 promises sc == 1 and
 // 8-byte-aligned texels.  sched: (n_slabs, 5) f32 rows of cascade, j, x,
-// pitch, inner flag.
+// pitch, inner flag: slab_schedule's rows, or a contiguous slice of them
+// (composited from T = 1).  bw, when not null, receives the best weight.
 extern "C" int sweep_composite_launch(
     const void* vol, long long sk, long long ss, long long sc, long long su,
     long long sv, int channel_last, const void* sched, int n_slabs,
     int n_cascades, const void* o_c, const void* eb, const void* ec,
     const void* t_stop, int hi, int wi, int resolution, float near_d,
     float min_t, int use_phase, float phase, int linear, int data_flip,
-    void* C, void* op, void* T, void* bt, void* stream) {
+    void* C, void* op, void* T, void* bt, void* bw, void* stream) {
   if (resolution > 32767 || n_slabs > 65535 || n_cascades > 255)
     return (int)cudaErrorInvalidValue;
   const Strides st{sk, ss, sc, su, sv};
 #define SWEEP_ARGS                                                  \
   vol, st, sched, n_slabs, n_cascades, o_c, eb, ec, t_stop, hi, wi, \
-      resolution, near_d, min_t, phase, data_flip, C, op, T, bt,    \
+      resolution, near_d, min_t, phase, data_flip, C, op, T, bt, bw, \
       (cudaStream_t)stream
 #define SWEEP_PICK(CL, LIN)                                      \
   (use_phase ? launch<CL, LIN, true>(SWEEP_ARGS) : launch<CL, LIN, false>(SWEEP_ARGS))

@@ -41,6 +41,12 @@ then fixed-k marching with an optional adaptive ray count) trains too.
 `bake_render_grid` bakes the fine render grid that render_frame's
 `fine_bitfield` takes; render mode `distortion` shows the lens and the
 distortion map as a colour wheel of each pixel's uv shift.
+
+Several devices (parallel/mesh.py: one process a device): the
+data-parallel bundle `train_bundle_multichip` (the state replicated, the
+ray batch and the occupancy cells split over the ranks, gradients
+averaged in rank order), and frames with their rays split over the ranks
+(`render_frame_multichip`, `render_views_multichip`).
 """
 
 from __future__ import annotations
@@ -107,6 +113,13 @@ from sienerf_torch.ops.raymarch import (
     march_rays,
 )
 from sienerf_torch.ops.tonemap import flow_to_rgb
+from sienerf_torch.parallel.mesh import (
+    all_gather,
+    all_max,
+    all_mean,
+    rank_generator,
+    shard_range,
+)
 from sienerf_torch.utils.bbox import BoundingBox
 from sienerf_torch.utils.camera import (
     Lens,
@@ -635,15 +648,22 @@ class NerfEngine:
         return loss.detach(), tree_unflatten(state["params"], list(grads)), aux
 
     def train_step(self, state: dict, draws: dict, k: int, iters: int,
-                   clock: "_PhaseClock | None" = None):
+                   clock: "_PhaseClock | None" = None, mesh=None):
         """One step from `draws` (draw_step) -> (new state, loss, mean
         samples a ray), the two numbers as 0-d tensors.  The camera, focal
         and exposure leaves step at extrinsics_lr_scale times the rate;
         extra dims that are not learnable (light directions) do not
-        move."""
+        move.  With a mesh (parallel/mesh.py) the draws are this rank's
+        share of the batch: the gradients of every leaf, the loss and the
+        mean samples a ray are averaged over the ranks in rank order, so
+        that every rank takes the same step, and the error map takes every
+        rank's rays."""
         clock = clock or _PhaseClock(None, self.device)
         loss, grads, (counts, per_ray, ray_meta) = self.loss_and_grads(
             state, draws, k, iters, clock)
+        cnt = counts.float().mean()
+        if mesh is not None:
+            loss, grads, cnt = _rank_mean(loss, grads, cnt, mesh)
         p = state["params"]
         lr_mask = None
         freeze_extra = "extra_dims" in p and not self.optimize_extra_dims
@@ -659,9 +679,10 @@ class NerfEngine:
         new_state = {**state, "params": params, "opt": opt, "step": int(state["step"]) + 1}
         if "emap" in state:
             img_idx, u, v = ray_meta
-            new_state["emap"] = splat_errors(state["emap"], img_idx, u, v, per_ray.detach())
+            new_state["emap"] = splat_errors(state["emap"], img_idx, u, v, per_ray.detach(),
+                                             mesh)
         clock.phase("optimizer")
-        return new_state, loss, counts.float().mean()
+        return new_state, loss, cnt
 
     def _dense_update(self, state: dict) -> bool:
         return (int(state["step"]) < self.dense_until
@@ -674,9 +695,12 @@ class NerfEngine:
         return draw_density_update(self.occ, self._dense_update(state), generator,
                                    self.device)
 
-    def occupancy_update(self, state: dict, draws) -> dict:
+    def occupancy_update(self, state: dict, draws, mesh=None) -> dict:
         """Fold the density of the current (raw) params at the drawn cells
-        into the occupancy grid."""
+        into the occupancy grid.  With a mesh every rank has drawn its own
+        cells: the densities and the bitfields are reduced by their maximum
+        over the ranks and the threshold's mean density by its mean, as the
+        JAX package unions its devices' samples; the update count stays."""
         params = state["params"]
 
         def density(unit):
@@ -686,6 +710,10 @@ class NerfEngine:
         amin, adiag = self._aabb_tensors()
         occ = update_density_grid(self.occ, state["occ"], density, draws, amin, adiag,
                                   self.data["visible_mask"])
+        if mesh is not None:
+            occ = dict(occ, density=all_max(occ["density"], mesh),
+                       bitfield=all_max(occ["bitfield"], mesh),
+                       mean_density=all_mean(occ["mean_density"], mesh))
         return {**state, "occ": occ}
 
     def _phase_geometry(self):
@@ -744,14 +772,32 @@ class NerfEngine:
         iterations, and with stats["sync_phases"] set the seconds of each
         training phase (TRAIN_PHASES), measured by synchronising the device
         after each (which slows the bundle)."""
-        clock = _PhaseClock(stats, self.device, TRAIN_PHASES)
         n_rays, k, iters = self._phase_geometry()
-        state = self.occupancy_update(state, self.draw_occupancy(state, generator))
+        return self._bundle(state, generator, n_rays, k, iters, stats)
+
+    def train_bundle_multichip(self, state: dict, generator: torch.Generator, mesh):
+        """The data-parallel bundle over a mesh's ranks (parallel/mesh.py),
+        the counterpart of the JAX package's shard_map bundle: every rank
+        holds the same state, draws max(64, n_rays / world) rays a step from
+        its own generator (parallel/mesh.py::rank_generator: the caller's
+        generator, the same seeded one on every rank, folded with the rank)
+        and its own occupancy cells; the occupancy grids are merged and the
+        gradients averaged in rank order (train_step, occupancy_update), so
+        the state stays the same on every rank.  -> (state, mean loss, mean
+        samples a ray), averaged over the ranks; the next bundle's geometry
+        follows the averaged count on every rank."""
+        n_rays, k, iters = self._phase_geometry()
+        return self._bundle(state, rank_generator(generator, mesh),
+                            max(64, n_rays // mesh.world), k, iters, None, mesh)
+
+    def _bundle(self, state, generator, n_rays, k, iters, stats, mesh=None):
+        clock = _PhaseClock(stats, self.device, TRAIN_PHASES)
+        state = self.occupancy_update(state, self.draw_occupancy(state, generator), mesh)
         clock.phase("occupancy")
         losses, counts = [], []
         for _ in range(self.grid_interval):
             draws = self.draw_step(generator, n_rays, int(state["step"]))
-            state, loss, cnt = self.train_step(state, draws, k, iters, clock)
+            state, loss, cnt = self.train_step(state, draws, k, iters, clock, mesh)
             losses.append(loss)
             counts.append(cnt)
         loss, cnt = torch.stack(losses).mean(), torch.stack(counts).mean()
@@ -759,12 +805,6 @@ class NerfEngine:
         if stats is not None:
             stats.update(n_rays=n_rays, k=k, iters=iters)
         return state, loss, cnt
-
-    def train_bundle_multichip(self, state, generator, mesh=None):
-        """The data-parallel bundle over several cards is not ported yet:
-        Slice G of ROADMAP.md (torch.distributed)."""
-        raise NotImplementedError("train_bundle_multichip is not ported yet: Slice G of "
-                                  "ROADMAP.md (multi-device paths over torch.distributed)")
 
     def eval_psnr(self, state: dict, view_indices, background=(0.0, 0.0, 0.0),
                   downscale: int = 1):
@@ -1114,6 +1154,76 @@ class NerfEngine:
             t1 = torch.maximum(torch.minimum(t1, btmax), t0)
         return o, d_n, dn[:, 0], t0, t1
 
+    @staticmethod
+    def _sharded_ray_fanout(mesh, tile: int, o: torch.Tensor, d: torch.Tensor, ray_fn):
+        """The sharded paths' scaffold: the flat ray stream padded to a
+        multiple of world * tile rays (origin 0, direction +z), each rank's
+        contiguous share run through ray_fn(o_tile, d_tile) -> (rgb, opacity,
+        depth) a tile at a time, and every share gathered in rank order ->
+        flat (rgb, opacity, depth) of the input's length on every rank."""
+        n = o.shape[0]
+        chunk = mesh.world * tile
+        pad = -(-n // chunk) * chunk - n
+        o = torch.cat([o, o.new_zeros((pad, 3))])
+        d = torch.cat([d, d.new_tensor([0.0, 0.0, 1.0]).expand(pad, 3)])
+        lo, hi = shard_range(n + pad, mesh.world, mesh.rank)
+        outs = []
+        for t0 in range(lo, hi, tile):
+            rgb, opacity, depth = ray_fn(o[t0:t0 + tile], d[t0:t0 + tile])
+            outs.append(torch.cat([rgb, opacity[:, None], depth[:, None]], dim=-1))
+        out = torch.cat(all_gather(torch.cat(outs), mesh))[:n]
+        return out[:, :3], out[:, 3], out[:, 4]
+
+    @staticmethod
+    def _background_fill(rgb, opacity, dirs, params, background):
+        """The unfilled transmittance over the trained envmap (read along
+        `dirs`, the rays as the JAX package's sharded frames pass them:
+        unnormalised) or the constant background."""
+        bg = torch.as_tensor(np.asarray(background, np.float32), device=rgb.device)
+        if "envmap" in params:
+            bg = background_behind_envmap(params["envmap"], dirs, bg)
+        return rgb + (1.0 - opacity)[:, None] * bg
+
+    @torch.no_grad()
+    def render_views_multichip(self, params, bitfield, width: int, height: int,
+                               camera_matrices, focal_lengths, mesh, tile: int = 1 << 13,
+                               background=(0.0, 0.0, 0.0), screen_center=(0.5, 0.5)):
+        """V views in one sharded stream: every view's rays concatenated and
+        split over the ranks, so the ranks stay balanced however the views
+        differ in cost and V need not divide the world -> rgba (V, H, W, 4)
+        and depth (V, H, W) on every rank.  params and bitfield are the
+        same on every rank."""
+        params = self._render_params(params)
+        uv = pixel_grid_uv(width, height, bitfield.device).reshape(-1, 2)
+        fls = np.asarray(focal_lengths, np.float32)
+        rays = [uv_to_ray(uv, (width, height), tuple(fl), cam, screen_center, self.lens)
+                for cam, fl in zip(np.asarray(camera_matrices, np.float32), fls)]
+        o = torch.cat([r[0] for r in rays])
+        d = torch.cat([r[1] for r in rays])
+        rgb, opacity, depth = self._sharded_ray_fanout(
+            mesh, tile, o, d, lambda oo, dd: self.render_rays(params, bitfield, oo, dd))
+        rgb = self._background_fill(rgb, opacity, d, params, background)
+        rgba = torch.cat([rgb, opacity[:, None]], dim=-1)
+        V = len(rays)
+        return rgba.reshape(V, height, width, 4), depth.reshape(V, height, width)
+
+    @torch.no_grad()
+    def render_frame_multichip(self, params, bitfield, width: int, height: int,
+                               camera_matrix, focal_length, mesh, tile: int = 1 << 13,
+                               background=(0.0, 0.0, 0.0), screen_center=(0.5, 0.5)):
+        """A frame with its rays sharded over the mesh's ranks (render_rays
+        over each rank's tiles; params and bitfield the same on every rank)
+        -> rgba (H, W, 4) and depth (H, W) on every rank."""
+        params = self._render_params(params)
+        uv = pixel_grid_uv(width, height, bitfield.device).reshape(-1, 2)
+        o, d = uv_to_ray(uv, (width, height), focal_length, camera_matrix, screen_center,
+                         self.lens)
+        rgb, opacity, depth = self._sharded_ray_fanout(
+            mesh, tile, o, d, lambda oo, dd: self.render_rays(params, bitfield, oo, dd))
+        rgb = self._background_fill(rgb, opacity, d, params, background)
+        rgba = torch.cat([rgb, opacity[:, None]], dim=-1)
+        return rgba.reshape(height, width, 4), depth.reshape(height, width)
+
     def _render_params(self, params: dict) -> dict:
         """Swap in a packed hash table for forward-only rendering."""
         if "grid_fp8" in params or "grid_bf16" in params:
@@ -1256,6 +1366,20 @@ class NerfEngine:
             cursor=s["cursor"] + done.sum(),
         )
         return s2
+
+
+def _rank_mean(loss: torch.Tensor, grads, cnt: torch.Tensor, mesh):
+    """(loss, gradient tree, mean samples a ray) averaged over the mesh's
+    ranks in rank order, in one collective of their concatenation."""
+    leaves = tree_leaves(grads)
+    flat = torch.cat([g.reshape(-1).float() for g in leaves]
+                     + [loss.reshape(1).float(), cnt.reshape(1).float()])
+    flat = all_mean(flat, mesh)
+    out, at = [], 0
+    for g in leaves:
+        out.append(flat[at:at + g.numel()].reshape(g.shape).to(g.dtype))
+        at += g.numel()
+    return flat[at].to(loss.dtype), tree_unflatten(grads, out), flat[at + 1]
 
 
 def _batched_uv_to_ray(uv: torch.Tensor, resolution, focal: torch.Tensor,

@@ -26,8 +26,10 @@ take their defaults from SIENERF_CULL, SIENERF_FINE, SIENERF_CULL_HEADS,
 SIENERF_FINE_HEADS and SIENERF_ADV, as in the JAX package.
 
 A network with extra dims shades every candidate with one row of them
-(training view 0's, or the `extra_row` a frame is given).  Not ported
-yet: the multichip frame (Slice G of ROADMAP.md).
+(training view 0's, or the `extra_row` a frame is given).
+`render_frame_baked_multichip` splits a frame's rays over the ranks of a
+mesh (parallel/mesh.py), each rank running render_rays_baked over its
+tiles from its own copy of the bake.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from sienerf_torch.common import (
     NERF_MIN_OPTICAL_THICKNESS,
     NERF_RENDERING_NEAR_DISTANCE,
 )
-from sienerf_torch.engines.nerf import _PhaseClock
+from sienerf_torch.engines.nerf import NerfEngine, _PhaseClock
 from sienerf_torch.models.nerf_network import (
     _encode_pos,
     apply_density_activation,
@@ -84,6 +86,7 @@ from sienerf_torch.ops.occupancy import (
     ray_box_times,
 )
 from sienerf_torch.ops.raymarch import advance_to_occupied, composite_chunk, retreat_to_occupied
+from sienerf_torch.utils.camera import pixel_grid_uv, uv_to_ray
 
 _CHUNK = 1 << 19          # vertices evaluated per step
 _SCALE_PROBES = 1 << 18   # the reference's scale-probe count
@@ -661,3 +664,33 @@ def render_frame_baked(engine, params, bitfield, grid, camera_matrix, focal_leng
                      **dict(zip(("ray_rounds", "evals", "overflows"), counts[1:].tolist())))
     return img + (counts,) if return_stats else img
 
+
+@torch.no_grad()
+def render_frame_baked_multichip(engine, params, bitfield, grid, camera_matrix, focal_length,
+                                 mesh, *, width: int, height: int, resolution: int, mode: str,
+                                 n_cascades: int = 1, tile: int = 1 << 13,
+                                 candidates: int = 128, evals: int = 32,
+                                 step_scale: float = 1.0, background=(0.0, 0.0, 0.0),
+                                 screen_center=(0.5, 0.5), min_transmittance=None,
+                                 cull=None, fine=None, adv=None, init_advance_iters: int = 32):
+    """A baked frame with its rays sharded over the mesh's ranks -> rgba
+    (H, W, 4) and depth (H, W) on every rank.  params, bitfield and the
+    bake are the same on every rank (replicated: every gather stays in its
+    own device's memory); each rank runs render_rays_baked over its tiles,
+    with the single-device frame's entry advance (`init_advance_iters`),
+    and the frame is gathered and filled as render_frame_multichip's."""
+    meta = {"resolution": resolution, "mode": mode, "n_cascades": n_cascades}
+    uv = pixel_grid_uv(width, height, bitfield.device).reshape(-1, 2)
+    o, d = uv_to_ray(uv, (width, height), focal_length, camera_matrix, screen_center,
+                     engine.lens)
+
+    def ray_fn(oo, dd):
+        return render_rays_baked(engine, params, grid, meta, bitfield, oo, dd, P=candidates,
+                                 evals=evals, step_scale=step_scale,
+                                 min_transmittance=min_transmittance, cull=cull, fine=fine,
+                                 adv=adv, init_advance_iters=init_advance_iters)
+
+    rgb, op, depth = NerfEngine._sharded_ray_fanout(mesh, tile, o, d, ray_fn)
+    rgb = NerfEngine._background_fill(rgb, op, d, params, background)
+    rgba = torch.cat([rgb, op[:, None]], dim=-1)
+    return rgba.reshape(height, width, 4), depth.reshape(height, width)

@@ -14,6 +14,14 @@ Per frame:
    the epilogue adds the background (behind a trained envmap, when the
    params carry one).
 
+`render_frame_sweep_multichip` runs the same frame over the ranks of a
+mesh (parallel/mesh.py): K1 shades each rank's share of the vertex planes
+and the planes are gathered into the volume on every rank
+(`prepare_rgba_volume_sharded`), K2 composites each rank's share of the
+slab schedule and the partials are folded in schedule order
+(ops/sweep_kernel.py::sweep_composite_sharded); the warp and the epilogue
+run on every rank.
+
 `impl="kernel"` (the default) runs K1 and K2; their wrappers launch the
 CUDA kernels for CUDA tensors and take the plain versions only for
 tensors on the CPU.  A network that K1 does not take (the JAX package's
@@ -36,9 +44,32 @@ from sienerf_torch.ops.baked import row_bits
 from sienerf_torch.ops.envmap import background_behind_envmap
 from sienerf_torch.ops.shade import shade_planes, shade_volume
 from sienerf_torch.ops.sweep import canon_coords, orient_grid, sweep_composite, warp_to_pixels
-from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel
+from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel, sweep_composite_sharded
+from sienerf_torch.parallel.mesh import gather_rows, shard_range
 
 E_MAX = 16.0  # gnomonic clamp: rays more than ~86 deg off-axis render as background
+
+
+def _plain_planes(engine, params, rows, scale, cam_origin, resolution: int,
+                  n_cascades: int, p0: int, p1: int) -> torch.Tensor:
+    """The plain shade of vertex planes [p0, p1) of the K*(R+1) planes ->
+    (p1 - p0, R+1, R+1, 4) bf16, with the params' render row of extra dims
+    (zeros when they have none)."""
+    R, K = resolution, n_cascades
+    Rv = R + 1
+    dev = rows.device
+    extra = None
+    if engine.net.n_extra_dims:
+        extra = engine._render_extra(params)
+        if extra is None:
+            extra = torch.zeros((engine.net.n_extra_dims,), dtype=torch.float32, device=dev)
+    plane = torch.arange(p0, p1, device=dev)
+    vol = shade_planes(rows.reshape(K * Rv, Rv * Rv, rows.shape[-1])[p0:p1], plane // Rv,
+                       plane % Rv, scale, cam_origin, params["rgb_mlp"], engine.net.rgb_mlp,
+                       resolution=R, density_act=engine.net.density_activation,
+                       rgb_act=engine.net.rgb_activation, sh_degree=engine.net.sh_degree,
+                       extra=extra)
+    return vol.reshape(p1 - p0, Rv, Rv, 4)
 
 
 def prepare_rgba_volume(engine, params, rows, scale, cam_origin,
@@ -46,24 +77,32 @@ def prepare_rgba_volume(engine, params, rows, scale, cam_origin,
     """Plain shade pass: (K*(R+1)^3, F) rows -> (K, R+1, R+1, R+1, 4) bf16
     premultiplied [s*r, s*g, s*b, s] volume for `cam_origin`, with the
     params' render row of extra dims (zeros when they have none)."""
-    extra = None
-    if engine.net.n_extra_dims:
-        extra = engine._render_extra(params)
-        if extra is None:
-            extra = torch.zeros((engine.net.n_extra_dims,), dtype=torch.float32,
-                                device=rows.device)
+    Rv = resolution + 1
+    return _plain_planes(engine, params, rows, scale, cam_origin, resolution, n_cascades, 0,
+                         n_cascades * Rv).reshape(n_cascades, Rv, Rv, Rv, 4)
+
+
+def prepare_rgba_volume_sharded(engine, params, rows, scale, cam_origin,
+                                resolution: int, n_cascades: int, mesh) -> torch.Tensor:
+    """The shade pass split over a mesh's ranks: rank r shades its
+    shard_range share of the K*(R+1) vertex planes (K1 on the card for a
+    network it takes, else, as prepare_rgba_volume, the plain shade), and
+    the planes are gathered in rank order -> the (K, R+1, R+1, R+1, 4) bf16
+    channel-last volume on every rank.  rows, scale and params are the same
+    on every rank."""
     R, K = resolution, n_cascades
     Rv = R + 1
-    dev = rows.device
-    planes = rows.reshape(K * Rv, Rv * Rv, rows.shape[-1])
-    casc = torch.arange(K, device=dev).repeat_interleave(Rv)
-    iplane = torch.arange(Rv, device=dev).repeat(K)
-    vol = shade_planes(planes, casc, iplane, scale, cam_origin, params["rgb_mlp"],
-                       engine.net.rgb_mlp, resolution=R,
-                       density_act=engine.net.density_activation,
-                       rgb_act=engine.net.rgb_activation,
-                       sh_degree=engine.net.sh_degree, extra=extra)
-    return vol.reshape(K, Rv, Rv, Rv, 4)
+    p0, p1 = shard_range(K * Rv, mesh.world, mesh.rank)
+    if p1 == p0:  # a rank past the last plane
+        local = torch.empty((0, Rv, Rv, 4), dtype=torch.bfloat16, device=rows.device)
+    elif _fused_prep_eligible(engine, {"rows": rows}):
+        local = shade_volume(rows, scale, cam_origin, params["rgb_mlp"], resolution=R,
+                             n_cascades=K, density_act=engine.net.density_activation,
+                             rgb_act=engine.net.rgb_activation, rgb_mlp=engine.net.rgb_mlp,
+                             planes=(p0, p1)).permute(0, 2, 3, 1)
+    else:
+        local = _plain_planes(engine, params, rows, scale, cam_origin, R, K, p0, p1)
+    return gather_rows(local, K * Rv, mesh).reshape(K, Rv, Rv, Rv, 4)
 
 
 def axis_view(vol: torch.Tensor, axis: int) -> torch.Tensor:
@@ -195,18 +234,58 @@ def render_frame_sweep(engine, params, grid, meta, camera_matrix, focal_length, 
             orient_grid(vol, axis, flip), o_c, eb, ec, near, min_t,
             phase=axis_phase, resolution=R, n_cascades=K, interp=interp)
 
-    maps = torch.cat([C, op[..., None], bt[..., None]], dim=-1)
-    good = g["good"]
-    outs = warp_to_pixels(maps, g["e_px"], eb[0], g["deb"], ec[0], g["dec"])
-    rgb = torch.where(good[:, None], outs[:, :3], 0.0)
-    opacity = torch.where(good, outs[:, 3].clamp(0.0, 1.0), 0.0)
-    depth = torch.where(good, outs[:, 4], 0.0) / torch.clamp(g["dn"], min=1e-9)
-    bg = torch.as_tensor(np.asarray(background, np.float32), device=dev)
-    if "envmap" in params:
-        bg = background_behind_envmap(params["envmap"], g["d"], bg)
-    rgb = rgb + (1.0 - opacity)[:, None] * bg
+    rgb, opacity, depth = _warp_epilogue(g, C, op, bt, params, background)
     if packed:
         out5 = torch.stack([rgb[:, 0], rgb[:, 1], rgb[:, 2], opacity, depth], dim=0)
         return out5.reshape(5, height, width)
+    rgba = torch.cat([rgb, opacity[:, None]], dim=-1)
+    return rgba.reshape(height, width, 4), depth.reshape(height, width)
+
+
+def _warp_epilogue(g: dict, C, op, bt, params, background):
+    """The intermediate maps warped to the pixels of sweep_geometry `g`,
+    over the background (behind a trained envmap) -> flat rgb, opacity,
+    z-depth."""
+    maps = torch.cat([C, op[..., None], bt[..., None]], dim=-1)
+    good = g["good"]
+    outs = warp_to_pixels(maps, g["e_px"], g["eb"][0], g["deb"], g["ec"][0], g["dec"])
+    rgb = torch.where(good[:, None], outs[:, :3], 0.0)
+    opacity = torch.where(good, outs[:, 3].clamp(0.0, 1.0), 0.0)
+    depth = torch.where(good, outs[:, 4], 0.0) / torch.clamp(g["dn"], min=1e-9)
+    bg = torch.as_tensor(np.asarray(background, np.float32), device=C.device)
+    if "envmap" in params:
+        bg = background_behind_envmap(params["envmap"], g["d"], bg)
+    return rgb + (1.0 - opacity)[:, None] * bg, opacity, depth
+
+
+@torch.no_grad()
+def render_frame_sweep_multichip(engine, params, grid, meta, camera_matrix, focal_length,
+                                 mesh, *, width: int, height: int, margin: float = 1.15,
+                                 hi: int | None = None, wi: int | None = None,
+                                 screen_center=(0.5, 0.5), background=(0.0, 0.0, 0.0),
+                                 min_transmittance=None, pixel_offset=None,
+                                 interp: str = "nearest"):
+    """render_frame_sweep over a mesh's ranks -> (rgba (H, W, 4), depth
+    (H, W)) on every rank: the rays, axis and gnomonic grid of
+    sweep_geometry, the plane-sharded shade (prepare_rgba_volume_sharded),
+    the slab-sharded composite (sweep_composite_sharded, each rank's share
+    cut at its own min transmittance: at 0 the frame is the one-device
+    frame up to float rounding), then the warp and epilogue on every rank.
+    params and the bake are the same on every rank."""
+    if meta["mode"] != "nearest":
+        raise ValueError("sweep renderer needs a mode='nearest' bake")
+    rows, scale = grid["rows"], grid["scale"]
+    R, K = meta["resolution"], meta["n_cascades"]
+    g = sweep_geometry(engine, camera_matrix, focal_length, width=width, height=height,
+                       margin=margin, hi=hi, wi=wi, screen_center=screen_center,
+                       pixel_offset=pixel_offset, device=rows.device)
+    min_t = engine.render_min_transmittance if min_transmittance is None \
+        else min_transmittance
+    near = max(NERF_RENDERING_NEAR_DISTANCE, engine.near_distance)
+    vol = prepare_rgba_volume_sharded(engine, params, rows, scale, g["o"][0], R, K, mesh)
+    C, op, T, bt = sweep_composite_sharded(
+        mesh, axis_view(vol.permute(0, 1, 4, 2, 3), g["axis"]), g["o_c"], g["eb"], g["ec"],
+        near, min_t, resolution=R, n_cascades=K, interp=interp, data_flip=g["flip"])
+    rgb, opacity, depth = _warp_epilogue(g, C, op, bt, params, background)
     rgba = torch.cat([rgb, opacity[:, None]], dim=-1)
     return rgba.reshape(height, width, 4), depth.reshape(height, width)

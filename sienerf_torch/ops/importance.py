@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from sienerf_torch.ops.fixed_order import fixed_cumsum, segment_sum_sorted
+from sienerf_torch.parallel.mesh import all_sum
 
 
 def init_error_map(n_images: int, res: int = 32, device=None) -> dict:
@@ -29,8 +30,11 @@ def init_error_map(n_images: int, res: int = 32, device=None) -> dict:
 
 
 def splat_errors(emap: dict, img_idx: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                 losses: torch.Tensor) -> dict:
-    """Decay the maps and add each ray's loss at its (image, u, v)."""
+                 losses: torch.Tensor, mesh=None) -> dict:
+    """Decay the maps and add each ray's loss at its (image, u, v).  With a
+    mesh (parallel/mesh.py) every rank splats its own rays and the additive
+    deltas are summed over the ranks, in rank order, before the decayed
+    accumulation, so that the map stays the same on every rank."""
     n_img, eh, ew = emap["error"].shape
     ex = torch.clamp((u * ew).to(torch.int64), max=ew - 1)
     ey = torch.clamp((v * eh).to(torch.int64), max=eh - 1)
@@ -38,6 +42,8 @@ def splat_errors(emap: dict, img_idx: torch.Tensor, u: torch.Tensor, v: torch.Te
     # summed per texel in a fixed order: one seed, one map on the card too
     sflat, order = torch.sort(flat, stable=True)
     add = segment_sum_sorted(losses.float()[order], sflat, n_img * eh * ew)
+    if mesh is not None:
+        add = all_sum(add, mesh)
     err = emap["error"].reshape(-1) * emap["decay"] + add
     return {**emap, "error": err.reshape(n_img, eh, ew)}
 

@@ -10,13 +10,15 @@ function keeps the JAX package's f32 operation order: `t` advances by
 `t + dt` or `t + skip`, and one differing ulp can move a sample across a
 voxel boundary.
 
-The loops are Python loops of plain PyTorch operations.  The trainer's
+The loops are Python loops of plain PyTorch operations; on the card the
+one-candidate march replays them as CUDA graphs (`_iterate`).  The trainer's
 `compact_samples` and `composite_flat` pack the marched samples into one
 dense ray-major stream and composite it segment by segment.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -205,27 +207,18 @@ def _march_rays_scalar(config: MarchConfig, bitfield, origins, dirs, t_start, t_
         words_fine = _as_packed(fine) if fine is not None else None
     words = _as_packed(bitfield)
     iota_K = _slot_iota(K, dev)
+    with_fine = words_fine is not None
+    lo, hi = MIN_CONE_STEPSIZE, MAX_CONE_STEPSIZE
 
-    t = t_start
-    k = torch.zeros((N,), dtype=torch.int64, device=dev)
-    ts = torch.zeros((N, K), dtype=torch.float32, device=dev)
-    dts = torch.zeros((N, K), dtype=torch.float32, device=dev)
-    if t_grad:
-        g = torch.ones_like(t)
-        gts, gdts = torch.zeros_like(ts), torch.zeros_like(dts)
-        lo, hi = MIN_CONE_STEPSIZE, MAX_CONE_STEPSIZE
-    every = _check_every(t, _DONE_CHECK)
-    for it in range(n_iters):
-        # once every ray is done an iteration changes nothing: look every
-        # `every` iterations and stop
-        if it and it % every == 0 and not bool(((t < t_far) & (k < K)).any()):
-            break
+    def body(consts, state):
+        words, words_fine, iota_K, origins, dirs, t_far = consts
+        t, k, ts, dts = state[:4]
         pos = origins + t[:, None] * dirs
         dt = calc_dt(t, config.cone_angle)
         mip = _probe_mip(config, pos, dt)
         occ = occupancy_lookup_packed(words, config.grid_size, pos, mip)
         occ_emit = occ
-        if fine is not None:
+        if with_fine:
             occ_emit = occ & occupancy_lookup_packed(words_fine, g_fine, pos, mip)
         active = (t < t_far) & (k < K)
         emit = active & occ_emit
@@ -233,9 +226,11 @@ def _march_rays_scalar(config: MarchConfig, bitfield, origins, dirs, t_start, t_
         ts = write(ts, t)
         dts = write(dts, dt)
         skip = _next_voxel_skip(t, pos, dirs, mip, dt, config.grid_size)
-        if fine is not None:
+        if with_fine:
             skip = torch.where(occ, _next_voxel_skip(t, pos, dirs, mip, dt, g_fine), skip)
+        out = ()
         if t_grad:
+            g, gts, gdts = state[4:]
             tc = t * config.cone_angle
             ddt = torch.where((tc > lo) & (tc < hi), config.cone_angle, 0.0)
             gts = write(gts, g)
@@ -243,11 +238,102 @@ def _march_rays_scalar(config: MarchConfig, bitfield, origins, dirs, t_start, t_
             n_steps = torch.round(skip / dt)
             g = torch.where(emit, g * (1.0 + ddt),
                             torch.where(active, g * (1.0 + n_steps * ddt), g))
+            out = (g, gts, gdts)
         t = torch.where(emit, t + dt, torch.where(active, t + skip, t))
         k = k + emit.to(torch.int64)
+        return (t, k, ts, dts) + out
+
+    def alive(consts, state):
+        return ((state[0] < consts[5]) & (state[1] < K)).any()
+
+    t = t_start
+    k = torch.zeros((N,), dtype=torch.int64, device=dev)
+    ts = torch.zeros((N, K), dtype=torch.float32, device=dev)
+    dts = torch.zeros((N, K), dtype=torch.float32, device=dev)
+    state = (t, k, ts, dts)
     if t_grad:
-        return ts, dts, k, t, gts, gdts
+        state += (torch.ones_like(t), torch.zeros_like(ts), torch.zeros_like(dts))
+    consts = (words, words_fine, iota_K, origins, dirs, t_far)
+    key = ("scalar", str(dev), config, N, K, t_grad, g_fine if with_fine else None,
+           tuple(words.shape), None if words_fine is None else tuple(words_fine.shape))
+    state = _iterate(key, body, alive, consts, state, n_iters, _check_every(t, _DONE_CHECK))
+    t, k, ts, dts = state[:4]
+    if t_grad:
+        return ts, dts, k, t, state[5], state[6]
     return ts, dts, k, t
+
+
+# On the card a march runs its iterations as CUDA graphs of _GRAPH_ITERS
+# iterations: an iteration is ~40 small kernels, which the host launches
+# several times slower than the card runs them.  A graph replays the same
+# kernels on the same bits, so a march's results do not change.  One graph
+# a march shape (rays, samples, grids); the few most recent are kept.
+GRAPHED_MARCH = True
+_GRAPH_ITERS = 16  # divides _DONE_CHECK
+_GRAPHS: dict = {}
+_GRAPHS_KEPT = 8
+_GRAPH_LOCK = threading.Lock()
+
+
+def _iterate(key, body, alive, consts, state, n_iters: int, every: int):
+    """state = body(consts, state) n_iters times, looking every `every`
+    iterations (0: never) whether alive(consts, state) and stopping once
+    it is not -> the last state.  `consts` and `state` are tuples of
+    tensors (a const may be None); body is free of host syncs."""
+    if not (GRAPHED_MARCH and state[0].device.type == "cuda" and n_iters >= _GRAPH_ITERS
+            and every % _GRAPH_ITERS == 0):
+        return _loop(None, body, alive, consts, state, n_iters, every)
+    with _GRAPH_LOCK:  # the graph's static tensors are shared
+        entry = _GRAPHS.pop(key, None) or _capture(body, consts, state, _GRAPH_ITERS)
+        _GRAPHS[key] = entry  # the most recent last
+        while len(_GRAPHS) > _GRAPHS_KEPT:
+            _GRAPHS.pop(next(iter(_GRAPHS)))
+        graph, s_consts, s_state = entry
+        for dst, src in zip(s_consts + s_state, consts + state):
+            if dst is not None:
+                dst.copy_(src)
+        state = _loop(graph, body, alive, s_consts, s_state, n_iters, every)
+        return tuple(s.clone() for s in state)
+
+
+def _loop(graph, body, alive, consts, state, n_iters: int, every: int):
+    """_iterate's loop: with a graph, whole graphs of _GRAPH_ITERS
+    iterations that advance the static state in place, then single ones."""
+    it = 0
+    while it < n_iters:
+        if every and it and it % every == 0 and not bool(alive(consts, state)):
+            break  # every ray is done: the rest would change nothing
+        if graph is not None and it + _GRAPH_ITERS <= n_iters:
+            graph.replay()
+            it += _GRAPH_ITERS
+        else:
+            state = body(consts, state)
+            it += 1
+    return state
+
+
+def _capture(body, consts, state, n: int):
+    """A CUDA graph of n iterations of body that reads its inputs from
+    static copies of consts and state and writes its last state back into
+    the state's copies -> (graph, static consts, static state)."""
+    s_consts = tuple(None if c is None else c.clone() for c in consts)
+    s_state = tuple(s.clone() for s in state)
+    dev = s_state[0].device
+    # one eager iteration on a side stream first (loads every kernel), as
+    # torch.cuda.graphs asks
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        body(s_consts, s_state)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cur = s_state
+        for _ in range(n):
+            cur = body(s_consts, cur)
+        for dst, src in zip(s_state, cur):
+            dst.copy_(src)
+    return graph, s_consts, s_state
 
 
 @torch.no_grad()

@@ -253,39 +253,65 @@ def shade_planes(planes: torch.Tensor, casc: torch.Tensor, iplane: torch.Tensor,
     return out
 
 
+def _plane_range(planes, resolution: int, n_cascades: int) -> tuple[int, int]:
+    """The vertex planes [p0, p1) a shade covers: all K*(R+1) by default."""
+    n = n_cascades * (resolution + 1)
+    p0, p1 = (0, n) if planes is None else (int(planes[0]), int(planes[1]))
+    if not 0 <= p0 < p1 <= n:
+        raise ValueError(f"shade_volume: planes must be a range in [0, {n}), got {planes}")
+    return p0, p1
+
+
+def _as_volume(out: torch.Tensor, planes, n_cascades: int) -> torch.Tensor:
+    """Channel-last storage (P, R+1, R+1, 4) -> the view callers see: the
+    axis-0 volume (K, R+1, 4, R+1, R+1), or (P, 4, R+1, R+1) for a plane
+    range."""
+    if planes is None:
+        Rv = out.shape[1]
+        return out.reshape(n_cascades, Rv, Rv, Rv, 4).permute(0, 1, 4, 2, 3)
+    return out.permute(0, 3, 1, 2)
+
+
 def shade_volume_plain(rows, scale, cam_origin, rgb_weights, *, resolution: int,
                        n_cascades: int, density_act: NerfActivation,
-                       rgb_act: NerfActivation, rgb_mlp: MLPConfig | None = None) -> torch.Tensor:
+                       rgb_act: NerfActivation, rgb_mlp: MLPConfig | None = None,
+                       planes=None) -> torch.Tensor:
     """The plain version in the kernel's output layout: (K*(R+1)^3, 16) int16
     rows -> axis-0 volume (K, R+1, 4, R+1, R+1) bf16, a view of channel-last
-    storage (channel stride 1).  `rgb_mlp` is the network's colour-MLP
-    config (by default the ReLU MLP of the weights' shapes)."""
+    storage (channel stride 1), or with `planes` = (p0, p1) vertex planes
+    [p0, p1) of the K*(R+1) -> (p1 - p0, 4, R+1, R+1), a view of
+    (p1 - p0, R+1, R+1, 4).  `rgb_mlp` is the network's colour-MLP config
+    (by default the ReLU MLP of the weights' shapes)."""
     R, K = resolution, n_cascades
     Rv = R + 1
     dev = rows.device
-    planes = rows.reshape(K * Rv, Rv * Rv, rows.shape[-1])
-    casc = torch.arange(K, device=dev).repeat_interleave(Rv)
-    iplane = torch.arange(Rv, device=dev).repeat(K)
-    vol = shade_planes(planes, casc, iplane, scale, cam_origin, rgb_weights,
+    p0, p1 = _plane_range(planes, R, K)
+    stack = rows.reshape(K * Rv, Rv * Rv, rows.shape[-1])[p0:p1]
+    plane = torch.arange(p0, p1, device=dev)
+    vol = shade_planes(stack, plane // Rv, plane % Rv, scale, cam_origin, rgb_weights,
                        rgb_mlp or mlp_for_weights(rgb_weights), resolution=R,
                        density_act=density_act, rgb_act=rgb_act)
-    return vol.reshape(K, Rv, Rv, Rv, 4).permute(0, 1, 4, 2, 3)
+    return _as_volume(vol.reshape(p1 - p0, Rv, Rv, 4), planes, K)
 
 
 def shade_volume(rows, scale, cam_origin, rgb_weights, *, resolution: int,
                  n_cascades: int, density_act: NerfActivation,
-                 rgb_act: NerfActivation, rgb_mlp: MLPConfig | None = None) -> torch.Tensor:
+                 rgb_act: NerfActivation, rgb_mlp: MLPConfig | None = None,
+                 planes=None) -> torch.Tensor:
     """K1: (K*(R+1)^3, 16) int16 rows, (K, 16) f32 scale, (3,) f32 camera
     origin, colour-MLP weights [(32, W), (W, W)..., (W, 3)] ->
     (K, R+1, 4, R+1, R+1) bf16 axis-0 volume, a view of channel-last
-    storage.  Launches the CUDA kernel for CUDA tensors: the tuned path for
-    the fox's 32-64-64-3, the general path for any other ReLU colour MLP
-    (the general kernel, or the wide kernel for a net it cannot hold);
-    tensors on the CPU take the plain version.  Raises for an MLP the
-    kernel does not take."""
+    storage.  With `planes` = (p0, p1) it shades vertex planes [p0, p1) of
+    the K*(R+1) planes of the bake (plane p is cascade p // (R+1), lattice
+    plane p % (R+1)) -> (p1 - p0, 4, R+1, R+1), a view of channel-last
+    (p1 - p0, R+1, R+1, 4): those planes of the whole volume.  Launches the
+    CUDA kernel for CUDA tensors: the tuned path for the fox's 32-64-64-3,
+    the general path for any other ReLU colour MLP (the general kernel, or
+    the wide kernel for a net it cannot hold); tensors on the CPU take the
+    plain version.  Raises for an MLP the kernel does not take."""
     return _shade_volume(rows, scale, cam_origin, rgb_weights, resolution=resolution,
                          n_cascades=n_cascades, density_act=density_act, rgb_act=rgb_act,
-                         rgb_mlp=rgb_mlp)
+                         rgb_mlp=rgb_mlp, planes=planes)
 
 
 def _shade_general(rows, scale, cam_origin, rgb_weights, **kw) -> torch.Tensor:
@@ -352,13 +378,13 @@ def _route(shapes: tuple, path: str, device: torch.device) -> str:
 def _shade_volume(rows, scale, cam_origin, rgb_weights, *, resolution: int,
                   n_cascades: int, density_act: NerfActivation,
                   rgb_act: NerfActivation, rgb_mlp: MLPConfig | None = None,
-                  path: str = "auto", stall_ns: int = 0) -> torch.Tensor:
+                  path: str = "auto", stall_ns: int = 0, planes=None) -> torch.Tensor:
     """shade_volume on the kernel `path` asks for ("auto", "general" or
     "wide", see _route).  stall_ns > 0 has the general kernel's producer
     warp 0 write its rows late, so that its stages fill out of order (the
     checks' hook)."""
     kw = dict(resolution=resolution, n_cascades=n_cascades,
-              density_act=density_act, rgb_act=rgb_act)
+              density_act=density_act, rgb_act=rgb_act, planes=planes)
     if rows.device.type == "cpu":
         return shade_volume_plain(rows, scale, cam_origin, rgb_weights, rgb_mlp=rgb_mlp, **kw)
     if rows.device.type != "cuda":
@@ -366,6 +392,7 @@ def _shade_volume(rows, scale, cam_origin, rgb_weights, *, resolution: int,
     R, K = resolution, n_cascades
     Rv = R + 1
     dev = rows.device
+    p0, p1 = _plane_range(planes, R, K)
     if rows.dtype != torch.int16 or tuple(rows.shape) != (K * Rv ** 3, 16) \
             or not rows.is_contiguous():
         raise ValueError(f"shade_volume: rows must be contiguous int16 "
@@ -390,7 +417,7 @@ def _shade_volume(rows, scale, cam_origin, rgb_weights, *, resolution: int,
             raise ValueError("shade_volume: the general path reads rows 16-byte aligned")
         width = general_width(width) if n_hidden else 32
     packed = _packed_for(rgb_weights, dev, _kernel_layout(n_hidden, route))
-    out = torch.empty((K, Rv, Rv, Rv, 4), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((p1 - p0, Rv, Rv, 4), dtype=torch.bfloat16, device=dev)
 
     lib = cuda_lib.load("shade")
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -400,21 +427,22 @@ def _shade_volume(rows, scale, cam_origin, rgb_weights, *, resolution: int,
         if route == "tuned":
             fn = lib.shade_volume_launch
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
             code = fn(rows.data_ptr(), scale.data_ptr(), cam.data_ptr(),
-                      packed.data_ptr(), out.data_ptr(), R, K, *acts, n_sms, stream)
+                      packed.data_ptr(), out.data_ptr(), R, K, p0, p1 - p0, *acts, n_sms,
+                      stream)
         else:
             general = route == "general"
             fn = lib.shade_general_launch if general else lib.shade_wide_launch
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-                           + [ctypes.c_int] * (6 if general else 5) + [ctypes.c_void_p])
+                           + [ctypes.c_int] * (8 if general else 7) + [ctypes.c_void_p])
             code = fn(rows.data_ptr(), scale.data_ptr(), cam.data_ptr(), packed.data_ptr(),
-                      packed.numel() // 2, n_hidden, width, out.data_ptr(), R, K, *acts,
-                      n_sms, *((stall_ns,) if general else ()), stream)
+                      packed.numel() // 2, n_hidden, width, out.data_ptr(), R, K, p0,
+                      p1 - p0, *acts, n_sms, *((stall_ns,) if general else ()), stream)
     cuda_lib.check(lib, "shade", code)
     shade_volume.launches += 1
-    return out.permute(0, 1, 4, 2, 3)
+    return _as_volume(out, planes, K)
 
 
 shade_volume.launches = 0

@@ -147,9 +147,12 @@ def _interp_matrix(targets: torch.Tensor, n_src: int,
 def _composite_over(oriented, o_c, eb, ec, near, min_transmittance,
                     resolution: int, n_cascades: int, interp: str = "nearest",
                     t_stop=None, phase=None, stats: dict | None = None,
-                    intervals=None):
+                    intervals=None, schedule=None, return_bw: bool = False):
     """Front-to-back composite of every slab of slab_schedule onto the
-    intermediate image -> (rgb (Hi, Wi, 3), opacity, T, depth_t (Hi, Wi)).
+    intermediate image -> (rgb (Hi, Wi, 3), opacity, T, depth_t (Hi, Wi)),
+    and the best weight (Hi, Wi) last with `return_bw`.  `schedule` =
+    (s0, s1) composites only the schedule's entries [s0, s1), from T = 1
+    (a rank's share of sweep_composite_sharded).
 
     With `phase` (spp jitter in [0, 1)) the sample plane moves to
     x + phase*pitch and its value blends planes j and j+1 in bf16.  With a
@@ -188,7 +191,10 @@ def _composite_over(oriented, o_c, eb, ec, near, min_transmittance,
         # one flag per texel of each (cascade, plane), plus a last slot that
         # takes the writes of samples that read nothing
         touched = torch.zeros((n_cascades, Rv, Rv * Rv + 1), dtype=torch.uint8, device=dev)
-    for m, j, x, pitch, inner in zip(*slab_schedule(n_cascades, R)):
+    entries = list(zip(*slab_schedule(n_cascades, R)))
+    if schedule is not None:
+        entries = entries[schedule[0]:schedule[1]]
+    for m, j, x, pitch, inner in entries:
         m, j = int(m), int(j)
         if not live[m, j]:
             continue
@@ -249,20 +255,49 @@ def _composite_over(oriented, o_c, eb, ec, near, min_transmittance,
         bt = torch.where(better, t_hat, bt)
     if stats is not None:
         stats["texels"] = stats.get("texels", 0) + touched[..., :-1].sum()
-    return C.permute(1, 2, 0), op, T, bt
+    out = (C.permute(1, 2, 0), op, T, bt)
+    return out + (bw,) if return_bw else out
 
 
 @torch.no_grad()
 def sweep_composite(oriented, o_c, eb, ec, near, min_transmittance,
                     t_stop=None, phase=None, *, resolution: int,
                     n_cascades: int, interp: str = "nearest", stats: dict | None = None,
-                    intervals=None):
+                    intervals=None, schedule=None, return_bw: bool = False):
     """Plain single-device sweep over an oriented (K, R+1, 4, R+1, R+1) bf16
-    volume ([s*r, s*g, s*b, s]) -> (rgb (Hi, Wi, 3), opacity, T, depth_t)."""
+    volume ([s*r, s*g, s*b, s]) -> (rgb (Hi, Wi, 3), opacity, T, depth_t),
+    and the best weight with `return_bw`; `schedule` = (s0, s1) composites
+    the schedule's entries [s0, s1) only, from T = 1."""
     return _composite_over(oriented, o_c, eb, ec, near, min_transmittance,
                            resolution, n_cascades, interp=interp,
                            t_stop=t_stop, phase=phase, stats=stats,
-                           intervals=intervals)
+                           intervals=intervals, schedule=schedule, return_bw=return_bw)
+
+
+def fold_partials(parts):
+    """The partial composites of consecutive schedule ranges, each from
+    T = 1, as (C, op, T, bw, bt) in schedule order -> one composite
+    (C, op, T, bt), as the JAX package folds its devices' partials: each
+    range is seen through the transmittance of the ranges before it
+    (C += T C_i, op += T op_i, T *= T_i), and the depth is that of the best
+    weight rescaled by the same transmittance.  The over operator is
+    associative, so at min transmittance 0 the fold is the whole sweep up
+    to float rounding; above 0 each range cuts at its own T."""
+    C0, op0, T0, bw0, bt0 = parts[0]
+    C = torch.zeros_like(C0)
+    op = torch.zeros_like(op0)
+    T = torch.ones_like(T0)
+    bw = torch.zeros_like(bw0)
+    bt = torch.zeros_like(bt0)
+    for C_i, op_i, T_i, bw_i, bt_i in parts:
+        cand = T * bw_i
+        better = cand > bw
+        bw = torch.where(better, cand, bw)
+        bt = torch.where(better, bt_i, bt)
+        C = C + T[..., None] * C_i
+        op = op + T * op_i
+        T = T * T_i
+    return C, op, T, bt
 
 
 def warp_to_pixels(maps: torch.Tensor, e_px: torch.Tensor,

@@ -1075,3 +1075,137 @@ def test_conditioned_baked_frame_through_g2_equals_plain(cuda):
         assert torch.equal(a, b) and float(a[..., 3].mean()) > 0.05
         frames.append(a)
     assert not torch.equal(frames[0], frames[1])
+
+
+# --- K1 on plane ranges and K2 on schedule slices (the sharded paths) ----------
+
+PLANE_ROUTES = {"tuned": ("base", "auto"), "general": ("big", "general"),
+                "general_0layer": ("base_0layer", "general"), "wide": ("w272", "wide")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(PLANE_ROUTES))
+@pytest.mark.parametrize("R,K", [(9, 3), (16, 2)])
+def test_shade_plane_ranges_equal_the_whole_bake(cuda, route, R, K):
+    """K1 on vertex planes [p0, p1) of the bake, on every route, equals
+    those planes of one whole-bake launch bit for bit: single planes, a
+    range across a cascade boundary, the last planes, and each rank's
+    share of 2 and 3 ranks.  A plane of R=9 is 100 rows, of R=16 289: no
+    range but the whole is a multiple of the general kernel's 64-row
+    stage."""
+    from sienerf_torch.parallel.mesh import shard_range
+
+    name, path = PLANE_ROUTES[route]
+    shapes = dict(GENERAL_SHAPES, **WIDE_SHAPES)[name]
+    rng = np.random.default_rng(R * K)
+    Rv = R + 1
+    rows = rng.integers(-32767, 32768, (K * Rv ** 3, 16)).astype(np.int16)
+    rows[rng.random(K * Rv ** 3) < 0.3] = -32768
+    scale = rng.uniform(2e-5, 2e-4, (K, 16)).astype(np.float32)
+    ws = [torch.from_numpy(rng.normal(0, 1 / np.sqrt(a), (a, b)).astype(np.float32)).to(cuda)
+          for a, b in shapes]
+    args = (torch.from_numpy(rows).to(cuda), torch.from_numpy(scale).to(cuda),
+            torch.tensor([0.1, 1.4, -0.6], device=cuda), ws)
+    kw = dict(resolution=R, n_cascades=K, **ACTS)
+    full = shade._shade_volume(*args, path=path, **kw)
+    storage = full.permute(0, 1, 3, 4, 2).reshape(K * Rv, Rv, Rv, 4)
+    n = K * Rv
+    ranges = [(0, 1), (5, 6), (Rv - 2, Rv + 3), (n - 3, n), (0, n)]
+    ranges += [shard_range(n, w, r) for w in (2, 3) for r in range(w)]
+    for p0, p1 in ranges:
+        n0 = shade_volume.launches
+        part = shade._shade_volume(*args, path=path, planes=(p0, p1), **kw)
+        torch.cuda.synchronize()
+        assert shade_volume.launches == n0 + 1
+        assert part.shape == (p1 - p0, 4, Rv, Rv) and part.stride(1) == 1
+        got = part.permute(0, 2, 3, 1).contiguous().view(torch.int16)
+        assert torch.equal(got, storage[p0:p1].contiguous().view(torch.int16)), (p0, p1)
+    # and the plain version of a range that crosses a cascade boundary
+    part = shade._shade_volume(*args, path=path, planes=(Rv - 2, Rv + 3), **kw)
+    want = shade_volume_plain(*args, planes=(Rv - 2, Rv + 3), **kw)
+    torch.testing.assert_close(part.float(), want.float(), rtol=2e-2, atol=2e-3)
+    for bad in ((0, 0), (-1, 2), (n - 1, n + 1)):
+        with pytest.raises(ValueError, match="planes"):
+            shade_volume(*args, planes=bad, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp,use_stop,phase,flip", SWEEP_ROWS)
+def test_sweep_schedule_slices_with_best_weight(cuda, interp, use_stop, phase, flip):
+    """K2 on slices of the slab schedule (a slice that holds no cascade's
+    slab 0 among them), returning the best weight, against the plain
+    version; and two slices folded as the sharded sweep folds them against
+    one whole launch at min transmittance 0."""
+    from sienerf_torch.ops.sweep import fold_partials
+
+    R, K = 16, 2
+    vol, o_c, eb, ec, stop = _sweep_inputs(R, K, 37, 131, seed=3, device=cuda)
+    S = R * K
+    for min_t in (1e-4, 0.0):
+        args = (vol, o_c, eb, ec, 0.05, min_t, stop if use_stop else None, phase)
+        kw = dict(resolution=R, n_cascades=K, interp=interp, data_flip=flip, return_bw=True)
+        for s0, s1 in ((0, S), (0, 13), (13, S), (5, 9), (S - 1, S)):
+            n0 = sweep_composite_kernel.launches
+            got = sweep_composite_kernel(*args, schedule=(s0, s1), **kw)
+            torch.cuda.synchronize()
+            assert sweep_composite_kernel.launches == n0 + 1 and len(got) == 5
+            want = sweep_composite_plain(*args, schedule=(s0, s1), **kw)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w.contiguous(), rtol=1e-4, atol=2e-4)
+    parts = []
+    for s0, s1 in ((0, 13), (13, S)):
+        C, op, T, bt, bw = sweep_composite_kernel(*args, schedule=(s0, s1), **kw)
+        parts.append((C, op, T, bw, bt))
+    folded = fold_partials(parts)
+    whole = sweep_composite_kernel(*args, resolution=R, n_cascades=K, interp=interp,
+                                   data_flip=flip)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("C", "opacity", "T"), folded[:3], whole[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5, msg=name)
+    torch.testing.assert_close(folded[3], whole[3], rtol=0, atol=1e-4)
+    assert float(whole[1].max()) > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_grad,fine", [(False, False), (True, False), (False, True)])
+def test_graphed_march_equals_the_eager_march(cuda, monkeypatch, t_grad, fine):
+    """The one-candidate march replays its iterations as CUDA graphs on the
+    card: bit-equal to the same march launched op by op, on a first call
+    (capture), on a second call with other rays (replay of the kept graph),
+    with an iteration count that is not a multiple of the graph's length,
+    and when every ray finishes before the iteration budget."""
+    from sienerf_torch.ops import raymarch as trm
+    from sienerf_torch.ops.occupancy import pack_occupancy
+
+    g, C, N, K = 32, 3, 777, 48
+    cfg = trm.MarchConfig(n_cascades=C, cone_angle=1.0 / 256.0, grid_size=g)
+
+    def scene(seed):
+        rng = np.random.default_rng(seed)
+        coarse = rng.random((C, g // 4, g // 4, g // 4)) < 0.3
+        bf = np.repeat(np.repeat(np.repeat(coarse, 4, 1), 4, 2), 4, 3)
+        o = rng.uniform(0.1, 0.9, (N, 3)).astype(np.float32)
+        d = rng.normal(size=(N, 3))
+        d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+        t0 = rng.uniform(0.0, 0.1, N).astype(np.float32)
+        t1 = rng.uniform(1.0, 1.5 * 2 ** (C - 1), N).astype(np.float32)
+        fine_bf = np.repeat(np.repeat(np.repeat(rng.random((C, g, g, g)) < 0.6, 2, 1), 2, 2),
+                            2, 3)
+        t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+        return (pack_occupancy(t(bf)), t(o), t(d), t(t0), t(t1),
+                (pack_occupancy(t(fine_bf)), 2 * g) if fine else None)
+
+    trm._GRAPHS.clear()
+    for seed, iters in ((0, 200), (1, 200), (2, 64 * 40 + 17)):
+        words, o, d, t0, t1, fine_words = scene(seed)
+        args = (cfg, words, o, d, t0, t1, K, iters)
+        monkeypatch.setattr(trm, "GRAPHED_MARCH", True)
+        got = trm.march_rays(*args, fine=fine_words, t_grad=t_grad)
+        monkeypatch.setattr(trm, "GRAPHED_MARCH", False)
+        want = trm.march_rays(*args, fine=fine_words, t_grad=t_grad)
+        torch.cuda.synchronize()
+        assert len(got) == len(want) == (6 if t_grad else 4)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), seed
+        assert int(got[2].sum()) > 0
+    assert len(trm._GRAPHS) == 1  # one shape: captured once, replayed after
