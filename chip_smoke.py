@@ -402,16 +402,16 @@ def rounding_flips(ceng, peng, state_c, cpu_state, draws, k, iters, dev) -> dict
     roundings meets the card's within STEP_FLIP_RTOL."""
     import torch
 
-    from sienerf_torch.engines.nerf import _PhaseClock
     from sienerf_torch.ops.mlp import tap_roundings
     from sienerf_torch.ops.optim import tree_map
+    from sienerf_torch.tracing import PhaseClock
 
     def loss_of(eng, state, d, device, grad=False, replace=None):
         params = tree_map(lambda x: x.detach().requires_grad_(grad), state["params"])
         with torch.enable_grad() if grad else torch.no_grad(), \
                 tap_roundings(replace) as tap:
             loss, _ = eng._loss_for_batch(params, state["occ"]["bitfield"], d,
-                                          state.get("emap"), k, iters, _PhaseClock(None, device))
+                                          state.get("emap"), k, iters, PhaseClock(None, device))
             g = torch.autograd.grad(loss, tap.seen) if grad else None
         return float(loss), [v.detach() for v in tap.seen], tap.kinds, g
 

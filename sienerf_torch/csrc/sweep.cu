@@ -77,6 +77,14 @@
 // - Exit together: a warp leaves the loop when every lane is below minT
 //   (one vote), and its 32 pixels form a 16x2 tile (32x1 and 8x4 measured
 //   within 3 % of it).
+// - Counting (template flag COUNT, launched only while the program's
+//   recorder records, sienerf_torch/tracing.py): each thread counts the
+//   samples it composites (alive, inside the lattice, in nearest mode not
+//   on a zeroed inner-square texel), a block sums them and adds the sum
+//   to one device int64 with one atomicAdd.  The plain version counts the
+//   same samples in stats["samples"], except in slabs whose sigma is zero
+//   everywhere, which it skips: the kernel cannot see that without reading
+//   the whole slab.  With COUNT false the kernel is the code it was.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // (sienerf_torch/ops/cuda_lib.py).  -fmad=false keeps every multiply-add in
@@ -185,14 +193,15 @@ __device__ __forceinline__ bool clip(double a, double b, double rb, double lo,
   return jl <= jh;
 }
 
-template <bool CL, bool LINEAR, bool PHASE>
+template <bool CL, bool LINEAR, bool PHASE, bool COUNT>
 __global__ void __launch_bounds__(BLOCK) sweep_kernel(
     const __nv_bfloat16* __restrict__ vol, Strides st,
     const float* __restrict__ sched, int S, int K, const float* __restrict__ o_c,
     const float* __restrict__ eb, const float* __restrict__ ec,
     const float* __restrict__ t_stop, int Hi, int Wi, int R, float near_d,
     float min_t, float phase, int data_flip, float* __restrict__ C, float* __restrict__ op_out,
-    float* __restrict__ t_out, float* __restrict__ bt_out, float* __restrict__ bw_out) {
+    float* __restrict__ t_out, float* __restrict__ bt_out, float* __restrict__ bw_out,
+    unsigned long long* __restrict__ live_count) {
   // shared, built once a block from what every pixel shares: per schedule
   // entry its x_rel, packed cascade | inner << 8 | j << 16 and the offsets
   // of its data plane (and of the next one, for the phase blend); per
@@ -294,6 +303,7 @@ __global__ void __launch_bounds__(BLOCK) sweep_kernel(
   __syncwarp();
 
   float c0 = 0.f, c1 = 0.f, c2 = 0.f, T = 1.f, op = 0.f, bw = 0.f, bt = 0.f;
+  [[maybe_unused]] unsigned n_live = 0u;  // with COUNT: the samples this thread composites
   using Fet = Fetched<CL, LINEAR, PHASE>;
 
   // The tests of list entry idx that need no texel: false if the sample
@@ -391,6 +401,7 @@ __global__ void __launch_bounds__(BLOCK) sweep_kernel(
 
   auto accumulate = [&](const Fet& f) {
     if (!(f.flags & 1u) || T < min_t) return;
+    if constexpr (COUNT) ++n_live;
     float sv[4];
     if (!LINEAR) {
       tap(f, 0, sv);
@@ -436,6 +447,18 @@ __global__ void __launch_bounds__(BLOCK) sweep_kernel(
 #pragma unroll
     for (int d = 0; d < D; ++d) accumulate(f[d]);
   }
+  if constexpr (COUNT) {  // every thread of the block is here: no early return above
+    __shared__ unsigned s_live[WARPS];
+    const unsigned w_live = __reduce_add_sync(FULL, n_live);
+    if (lane == 0) s_live[warp] = w_live;
+    __syncthreads();
+    if (tid == 0) {
+      unsigned long long b = 0ull;
+#pragma unroll
+      for (int i = 0; i < WARPS; ++i) b += s_live[i];
+      if (b != 0ull) atomicAdd(live_count, b);
+    }
+  }
   if (inb) {
     C[pix * 3] = c0;
     C[pix * 3 + 1] = c1;
@@ -452,14 +475,14 @@ size_t smem_bytes(int S, int K) {
          (size_t)WARPS * S * 2;
 }
 
-template <bool CL, bool LINEAR, bool PHASE>
+template <bool CL, bool LINEAR, bool PHASE, bool COUNT>
 cudaError_t launch(const void* vol, const Strides& st, const void* sched, int S,
                    int K, const void* o_c, const void* eb, const void* ec,
                    const void* t_stop, int hi, int wi, int R, float near_d,
                    float min_t, float phase, int data_flip, void* C, void* op, void* T, void* bt,
-                   void* bw, cudaStream_t stream) {
+                   void* bw, void* live_count, cudaStream_t stream) {
   const size_t bytes = smem_bytes(S, K);
-  auto kern = sweep_kernel<CL, LINEAR, PHASE>;
+  auto kern = sweep_kernel<CL, LINEAR, PHASE, COUNT>;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -469,7 +492,8 @@ cudaError_t launch(const void* vol, const Strides& st, const void* sched, int S,
   kern<<<grid, BLOCK, bytes, stream>>>(
       (const __nv_bfloat16*)vol, st, (const float*)sched, S, K, (const float*)o_c,
       (const float*)eb, (const float*)ec, (const float*)t_stop, hi, wi, R, near_d,
-      min_t, phase, data_flip, (float*)C, (float*)op, (float*)T, (float*)bt, (float*)bw);
+      min_t, phase, data_flip, (float*)C, (float*)op, (float*)T, (float*)bt, (float*)bw,
+      (unsigned long long*)live_count);
   return cudaGetLastError();
 }
 
@@ -480,28 +504,34 @@ cudaError_t launch(const void* vol, const Strides& st, const void* sched, int S,
 // 8-byte-aligned texels.  sched: (n_slabs, 5) f32 rows of cascade, j, x,
 // pitch, inner flag: slab_schedule's rows, or a contiguous slice of them
 // (composited from T = 1).  bw, when not null, receives the best weight.
+// live_count, when not null, is a device int64 that the counting variant
+// adds the samples it composites to.
 extern "C" int sweep_composite_launch(
     const void* vol, long long sk, long long ss, long long sc, long long su,
     long long sv, int channel_last, const void* sched, int n_slabs,
     int n_cascades, const void* o_c, const void* eb, const void* ec,
     const void* t_stop, int hi, int wi, int resolution, float near_d,
     float min_t, int use_phase, float phase, int linear, int data_flip,
-    void* C, void* op, void* T, void* bt, void* bw, void* stream) {
+    void* C, void* op, void* T, void* bt, void* bw, void* live_count, void* stream) {
   if (resolution > 32767 || n_slabs > 65535 || n_cascades > 255)
     return (int)cudaErrorInvalidValue;
   const Strides st{sk, ss, sc, su, sv};
 #define SWEEP_ARGS                                                  \
   vol, st, sched, n_slabs, n_cascades, o_c, eb, ec, t_stop, hi, wi, \
       resolution, near_d, min_t, phase, data_flip, C, op, T, bt, bw, \
-      (cudaStream_t)stream
-#define SWEEP_PICK(CL, LIN)                                      \
-  (use_phase ? launch<CL, LIN, true>(SWEEP_ARGS) : launch<CL, LIN, false>(SWEEP_ARGS))
+      live_count, (cudaStream_t)stream
+#define SWEEP_PHASE(CL, LIN, CNT)                                          \
+  (use_phase ? launch<CL, LIN, true, CNT>(SWEEP_ARGS)                      \
+             : launch<CL, LIN, false, CNT>(SWEEP_ARGS))
+#define SWEEP_PICK(CL, LIN) \
+  (live_count ? SWEEP_PHASE(CL, LIN, true) : SWEEP_PHASE(CL, LIN, false))
   cudaError_t e;
   if (channel_last)
     e = linear ? SWEEP_PICK(true, true) : SWEEP_PICK(true, false);
   else
     e = linear ? SWEEP_PICK(false, true) : SWEEP_PICK(false, false);
 #undef SWEEP_PICK
+#undef SWEEP_PHASE
 #undef SWEEP_ARGS
   return (int)e;
 }

@@ -332,11 +332,11 @@ class GeometryEngine:
             raise ValueError(f"unknown renderer {renderer!r}")
         if impl not in ("kernel", "plain"):
             raise ValueError(f"unknown impl {impl!r}")
-        from sienerf_torch.engines.nerf import _PhaseClock
         from sienerf_torch.engines.nerf_baked import render_rays_baked
+        from sienerf_torch.tracing import PhaseClock
 
         dev = self.device
-        clock = _PhaseClock(stats, dev, ("mesh", "nerf"))
+        clock = PhaseClock(stats, dev, ("mesh", "nerf"))
         bakes = self._ensure_nerf_bakes(nerf_objs) if renderer == "baked" else \
             [None] * len(nerf_objs)
         o, d = self._frame_rays(width, height, camera_matrix, focal_length, dev)
@@ -368,7 +368,6 @@ class GeometryEngine:
     def _render_frame_hybrid_sweep(self, width, height, camera_matrix, focal_length,
                                    background, obj, impl: str = "kernel",
                                    stats: dict | None = None):
-        from sienerf_torch.engines.nerf import _PhaseClock
         from sienerf_torch.engines.nerf_sweep import (
             E_MAX,
             _align,
@@ -379,6 +378,7 @@ class GeometryEngine:
         from sienerf_torch.ops.shade import shade_volume
         from sienerf_torch.ops.sweep import canon_coords, orient_grid, sweep_composite, warp_to_pixels
         from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel
+        from sienerf_torch.tracing import PhaseClock
 
         if impl not in ("kernel", "plain"):
             raise ValueError(f"unknown impl {impl!r}")
@@ -387,7 +387,7 @@ class GeometryEngine:
             raise ValueError("the sweep hybrid needs a mode='nearest' bake")
         eng = obj.nerf
         dev = grid["rows"].device
-        clock = _PhaseClock(stats, dev, HYBRID_PHASES)
+        clock = PhaseClock(stats, dev, HYBRID_PHASES)
         # the sweep axis from the centre pixel's ray, on the device
         _, d0 = uv_to_ray(torch.tensor([[0.5, 0.5]], device=dev), (width, height),
                           focal_length, camera_matrix)

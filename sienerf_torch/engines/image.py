@@ -23,7 +23,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from sienerf_torch.engines.nerf import _PhaseClock
 from sienerf_torch.models.single_network import (
     SingleNetworkConfig,
     apply_single_network,
@@ -42,6 +41,7 @@ from sienerf_torch.ops.optim import (
     tree_unflatten,
 )
 from sienerf_torch.ops.samplers import halton_2d, sobol_2d
+from sienerf_torch.tracing import PhaseClock
 
 # a training step's phases (train_step's stats)
 IMAGE_PHASES = ("sample", "field", "optimizer")
@@ -100,7 +100,7 @@ class ImageEngine:
 
     def loss_and_grads(self, params: dict, coords: torch.Tensor, clock=None):
         """The batch's mean loss and its gradient in every param leaf."""
-        clock = clock or _PhaseClock(None, self.device)
+        clock = clock or PhaseClock(None, self.device)
         target = self.targets(coords)
         clock.phase("sample")
         with torch.enable_grad():
@@ -117,7 +117,7 @@ class ImageEngine:
         (params, opt_state, loss).  The params and the optimizer state are
         updated in place.  With stats["sync_phases"], stats["phase_s"]
         receives the seconds of sample / field / optimizer."""
-        clock = _PhaseClock(stats, self.device, IMAGE_PHASES)
+        clock = PhaseClock(stats, self.device, IMAGE_PHASES)
         if coords is None:
             coords = self.draw_coords(generator, int(opt_state["step"]))
         loss, grads = self.loss_and_grads(params, coords, clock)

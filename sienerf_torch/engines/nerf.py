@@ -53,7 +53,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -120,6 +119,7 @@ from sienerf_torch.parallel.mesh import (
     rank_generator,
     shard_range,
 )
+from sienerf_torch.tracing import PhaseClock
 from sienerf_torch.utils.bbox import BoundingBox
 from sienerf_torch.utils.camera import (
     Lens,
@@ -138,38 +138,6 @@ TRAIN_PHASES = ("sample", "march", "field", "composite", "optimizer", "occupancy
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((x * x).sum(dim=-1, keepdim=True))
-
-
-class _PhaseClock:
-    """Statistics for a caller's `stats` dict: with stats["sync_phases"]
-    set, the seconds of each of `phases`, measured by synchronising the
-    device after it (which slows the work, so a timed run leaves it
-    unset); for a frame also the host's wait for the device's per-round
-    answer."""
-
-    def __init__(self, stats: dict | None, device: torch.device, phases=_FRAME_PHASES):
-        self.stats = stats
-        self.sync = bool(stats and stats.get("sync_phases")) and device.type == "cuda"
-        if stats is not None and stats.get("sync_phases"):
-            stats["phase_s"] = dict.fromkeys(phases, 0.0)
-        self._t = time.perf_counter()
-
-    def phase(self, name: str) -> None:
-        if self.stats is None or "phase_s" not in self.stats:
-            return
-        if self.sync:
-            torch.cuda.synchronize()
-        now = time.perf_counter()
-        self.stats["phase_s"][name] += now - self._t
-        self._t = now
-
-    def any_alive(self, alive: torch.Tensor) -> bool:
-        t = time.perf_counter()
-        out = bool(alive.any())
-        if self.stats is not None:
-            self.stats["host_wait_s"] += time.perf_counter() - t
-            self._t = time.perf_counter()
-        return out
 
 
 @dataclass(eq=False)
@@ -533,7 +501,7 @@ class NerfEngine:
         return origins, dirs, target, draws["bg"], (img_idx, uv[:, 0], uv[:, 1]), depth
 
     def _loss_for_batch(self, params: dict, bitfield: torch.Tensor, draws: dict,
-                        emap: dict | None, k: int, iters: int, clock: "_PhaseClock"):
+                        emap: dict | None, k: int, iters: int, clock: "PhaseClock"):
         """The training loss of one batch -> (loss, (counts, per-ray loss,
         (img_idx, u, v)))."""
         cam = {n: params[n] for n in ("cam", "focal", "distortion") if n in params}
@@ -634,10 +602,10 @@ class NerfEngine:
         return loss, (counts, per_ray, ray_meta)
 
     def loss_and_grads(self, state: dict, draws: dict, k: int, iters: int,
-                       clock: "_PhaseClock | None" = None):
+                       clock: "PhaseClock | None" = None):
         """The loss of one batch and its gradient in every param leaf ->
         (loss, grads like params, (counts, per-ray loss, ray meta))."""
-        clock = clock or _PhaseClock(None, self.device)
+        clock = clock or PhaseClock(None, self.device)
         with torch.enable_grad():
             p_req = tree_map(lambda t: t.detach().requires_grad_(True), state["params"])
             loss, aux = self._loss_for_batch(p_req, state["occ"]["bitfield"], draws,
@@ -648,7 +616,7 @@ class NerfEngine:
         return loss.detach(), tree_unflatten(state["params"], list(grads)), aux
 
     def train_step(self, state: dict, draws: dict, k: int, iters: int,
-                   clock: "_PhaseClock | None" = None, mesh=None):
+                   clock: "PhaseClock | None" = None, mesh=None):
         """One step from `draws` (draw_step) -> (new state, loss, mean
         samples a ray), the two numbers as 0-d tensors.  The camera, focal
         and exposure leaves step at extrinsics_lr_scale times the rate;
@@ -658,7 +626,7 @@ class NerfEngine:
         mean samples a ray are averaged over the ranks in rank order, so
         that every rank takes the same step, and the error map takes every
         rank's rays."""
-        clock = clock or _PhaseClock(None, self.device)
+        clock = clock or PhaseClock(None, self.device)
         loss, grads, (counts, per_ray, ray_meta) = self.loss_and_grads(
             state, draws, k, iters, clock)
         cnt = counts.float().mean()
@@ -791,7 +759,7 @@ class NerfEngine:
                             max(64, n_rays // mesh.world), k, iters, None, mesh)
 
     def _bundle(self, state, generator, n_rays, k, iters, stats, mesh=None):
-        clock = _PhaseClock(stats, self.device, TRAIN_PHASES)
+        clock = PhaseClock(stats, self.device, TRAIN_PHASES)
         state = self.occupancy_update(state, self.draw_occupancy(state, generator), mesh)
         clock.phase("occupancy")
         losses, counts = [], []
@@ -1038,7 +1006,7 @@ class NerfEngine:
             return self._render_distortion_frame(params, width, height, camera_matrix,
                                                  focal_length, screen_center, dev)
         self._check_mode(render_mode)
-        clock = _PhaseClock(stats, dev)
+        clock = PhaseClock(stats, dev, _FRAME_PHASES)
         if stats is not None:
             stats.update(rounds=0, host_wait_s=0.0)
         n = width * height
@@ -1292,7 +1260,7 @@ class NerfEngine:
         return r[:, 0:3], r[:, 3:6], r[:, 6], r[:, 7], r[:, 8]
 
     def _frame_round(self, s, params, words, n, rays_pre, fine_bitfield, render_mode,
-                     clock: _PhaseClock, extra_row=None):
+                     clock: PhaseClock, extra_row=None):
         """One round of the streaming renderer: march a chunk, evaluate and
         composite it, flush finished rays to the frame, refill their
         slots."""

@@ -45,7 +45,7 @@ from sienerf_torch.common import (
     NERF_MIN_OPTICAL_THICKNESS,
     NERF_RENDERING_NEAR_DISTANCE,
 )
-from sienerf_torch.engines.nerf import NerfEngine, _PhaseClock
+from sienerf_torch.engines.nerf import NerfEngine
 from sienerf_torch.models.nerf_network import (
     _encode_pos,
     apply_density_activation,
@@ -86,6 +86,7 @@ from sienerf_torch.ops.occupancy import (
     ray_box_times,
 )
 from sienerf_torch.ops.raymarch import advance_to_occupied, composite_chunk, retreat_to_occupied
+from sienerf_torch.tracing import PhaseClock
 from sienerf_torch.utils.camera import pixel_grid_uv, uv_to_ray
 
 _CHUNK = 1 << 19          # vertices evaluated per step
@@ -217,7 +218,7 @@ def bake_feature_grid(engine, params: dict, bitfield: torch.Tensor,
 # --- rendering ---------------------------------------------------------------
 
 
-_NO_CLOCK = _PhaseClock(None, torch.device("cpu"))
+_NO_CLOCK = PhaseClock(None, torch.device("cpu"))
 
 
 def _candidate_chain(t0: torch.Tensor, cone_angle: float, n: int, step_scale: float):
@@ -594,7 +595,7 @@ def render_frame_baked(engine, params, bitfield, grid, camera_matrix, focal_leng
     params = with_extra_row(params, extra_row)
     if stats is not None:
         stats.update(rounds=0, host_wait_s=0.0)
-    clock = _PhaseClock(stats, dev, BAKED_PHASES)
+    clock = PhaseClock(stats, dev, BAKED_PHASES)
     n = width * height
     A = min(tile, max(256, n))
     off = (0.5, 0.5) if pixel_offset is None else pixel_offset

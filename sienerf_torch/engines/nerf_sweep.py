@@ -46,6 +46,7 @@ from sienerf_torch.ops.shade import shade_planes, shade_volume
 from sienerf_torch.ops.sweep import canon_coords, orient_grid, sweep_composite, warp_to_pixels
 from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel, sweep_composite_sharded
 from sienerf_torch.parallel.mesh import gather_rows, shard_range
+from sienerf_torch.tracing import RECORDER
 
 E_MAX = 16.0  # gnomonic clamp: rays more than ~86 deg off-axis render as background
 
@@ -208,38 +209,45 @@ def render_frame_sweep(engine, params, grid, meta, camera_matrix, focal_length, 
     rows, scale = grid["rows"], grid["scale"]
     dev = rows.device
     R, K = meta["resolution"], meta["n_cascades"]
-    g = sweep_geometry(engine, camera_matrix, focal_length, width=width,
-                       height=height, margin=margin, hi=hi, wi=wi,
-                       screen_center=screen_center, pixel_offset=pixel_offset,
-                       device=dev)
+    with RECORDER.span("geometry", device=True):
+        g = sweep_geometry(engine, camera_matrix, focal_length, width=width,
+                           height=height, margin=margin, hi=hi, wi=wi,
+                           screen_center=screen_center, pixel_offset=pixel_offset,
+                           device=dev)
     axis, flip, o, o_c, eb, ec = g["axis"], g["flip"], g["o"], g["o_c"], g["eb"], g["ec"]
     min_t = engine.render_min_transmittance if min_transmittance is None \
         else min_transmittance
     near = max(NERF_RENDERING_NEAR_DISTANCE, engine.near_distance)
 
     if impl == "kernel":
-        if _fused_prep_eligible(engine, grid):
-            vol = shade_volume(rows, scale, o[0], params["rgb_mlp"], resolution=R,
-                               n_cascades=K, density_act=engine.net.density_activation,
-                               rgb_act=engine.net.rgb_activation, rgb_mlp=engine.net.rgb_mlp)
-        else:  # the JAX package's route: the plain shade, then K2
-            vol = prepare_rgba_volume(engine, params, rows, scale, o[0], R, K) \
-                .permute(0, 1, 4, 2, 3)
-        C, op, T, bt = sweep_composite_kernel(
-            axis_view(vol, axis), o_c, eb, ec, near, min_t, phase=axis_phase, resolution=R,
-            n_cascades=K, interp=interp, data_flip=flip)
+        with RECORDER.span("shade", device=True):
+            if _fused_prep_eligible(engine, grid):
+                vol = shade_volume(rows, scale, o[0], params["rgb_mlp"], resolution=R,
+                                   n_cascades=K, density_act=engine.net.density_activation,
+                                   rgb_act=engine.net.rgb_activation,
+                                   rgb_mlp=engine.net.rgb_mlp)
+            else:  # the JAX package's route: the plain shade, then K2
+                vol = prepare_rgba_volume(engine, params, rows, scale, o[0], R, K) \
+                    .permute(0, 1, 4, 2, 3)
+        with RECORDER.span("composite", device=True):
+            C, op, T, bt = sweep_composite_kernel(
+                axis_view(vol, axis), o_c, eb, ec, near, min_t, phase=axis_phase,
+                resolution=R, n_cascades=K, interp=interp, data_flip=flip)
     else:
-        vol = prepare_rgba_volume(engine, params, rows, scale, o[0], R, K)
-        C, op, T, bt = sweep_composite(
-            orient_grid(vol, axis, flip), o_c, eb, ec, near, min_t,
-            phase=axis_phase, resolution=R, n_cascades=K, interp=interp)
+        with RECORDER.span("shade", device=True):
+            vol = prepare_rgba_volume(engine, params, rows, scale, o[0], R, K)
+        with RECORDER.span("composite", device=True):
+            C, op, T, bt = sweep_composite(
+                orient_grid(vol, axis, flip), o_c, eb, ec, near, min_t,
+                phase=axis_phase, resolution=R, n_cascades=K, interp=interp)
 
-    rgb, opacity, depth = _warp_epilogue(g, C, op, bt, params, background)
-    if packed:
-        out5 = torch.stack([rgb[:, 0], rgb[:, 1], rgb[:, 2], opacity, depth], dim=0)
-        return out5.reshape(5, height, width)
-    rgba = torch.cat([rgb, opacity[:, None]], dim=-1)
-    return rgba.reshape(height, width, 4), depth.reshape(height, width)
+    with RECORDER.span("warp", device=True):
+        rgb, opacity, depth = _warp_epilogue(g, C, op, bt, params, background)
+        if packed:
+            out5 = torch.stack([rgb[:, 0], rgb[:, 1], rgb[:, 2], opacity, depth], dim=0)
+            return out5.reshape(5, height, width)
+        rgba = torch.cat([rgb, opacity[:, None]], dim=-1)
+        return rgba.reshape(height, width, 4), depth.reshape(height, width)
 
 
 def _warp_epilogue(g: dict, C, op, bt, params, background):

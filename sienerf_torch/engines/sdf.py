@@ -36,7 +36,6 @@ import numpy as np
 import torch
 
 from sienerf_torch.common import MeshSdfMode
-from sienerf_torch.engines.nerf import _PhaseClock
 from sienerf_torch.geom import bvh_native
 from sienerf_torch.geom.bvh import TriangleBVH, build_bvh, bvh_raytrace
 from sienerf_torch.geom.mesh_io import triangle_areas, triangle_normals
@@ -62,6 +61,7 @@ from sienerf_torch.ops.optim import (
     tree_map,
     tree_unflatten,
 )
+from sienerf_torch.tracing import PhaseClock
 from sienerf_torch.utils.bbox import BoundingBox
 from sienerf_torch.utils.camera import uv_to_ray
 
@@ -192,7 +192,7 @@ class SdfEngine:
         on the device.  On the host path a numpy generator seeded from
         `generator` draws every batch first, then the native query gives
         their targets."""
-        clock = clock or _PhaseClock(None, self.device)
+        clock = clock or PhaseClock(None, self.device)
         if not self.host_gt:
             pos = torch.stack([self.sample_batch(generator) for _ in range(n_steps)])
             clock.phase("sample")
@@ -222,7 +222,7 @@ class SdfEngine:
     def train_step(self, state: dict, pos: torch.Tensor, target: torch.Tensor, clock=None):
         """One step on a batch -> (state, loss); the state is updated in
         place."""
-        clock = clock or _PhaseClock(None, self.device)
+        clock = clock or PhaseClock(None, self.device)
         loss, grads = self.loss_and_grads(state["params"], pos, target)
         clock.phase("field")
         params, opt = optim_step(self.opt, state["opt"], state["params"], grads,
@@ -235,7 +235,7 @@ class SdfEngine:
         """Draw a bundle and take its n_steps steps -> (state, mean loss as
         a 0-d tensor).  With stats["sync_phases"], stats["phase_s"]
         receives the seconds of sample / ground_truth / field / optimizer."""
-        clock = _PhaseClock(stats, self.device, SDF_TRAIN_PHASES)
+        clock = PhaseClock(stats, self.device, SDF_TRAIN_PHASES)
         pos, tgt = self.draw_bundle(generator, n_steps, clock)
         losses = []
         for i in range(n_steps):
@@ -258,7 +258,7 @@ class SdfEngine:
         """-> (pos (N, 3), t (N,), hit (N,), steps a ray (N,), soft-shadow
         visibility (N,) in [0, 1]).  clock.stats["trace_iters"] counts the
         loop's iterations."""
-        clock = clock or _PhaseClock(None, self.device)
+        clock = clock or PhaseClock(None, self.device)
         N, dev = origins.shape[0], origins.device
         t = t_init.float().clone()
         alive = torch.ones(N, dtype=torch.bool, device=dev)
@@ -346,7 +346,7 @@ class SdfEngine:
         With stats["sync_phases"], stats["phase_s"] receives the seconds of
         setup / trace / field / normals / shade; stats["trace_iters"] counts
         the sphere tracer's iterations (primary and shadow)."""
-        clock = _PhaseClock(stats, self.device, SDF_FRAME_PHASES)
+        clock = PhaseClock(stats, self.device, SDF_FRAME_PHASES)
         dev = self.device
         fl = (width * focal_scale, width * focal_scale)
         x = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width

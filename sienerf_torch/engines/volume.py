@@ -25,7 +25,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from sienerf_torch.engines.nerf import _PhaseClock
 from sienerf_torch.io.nanovdb import DenseVolume
 from sienerf_torch.models.single_network import (
     SingleNetworkConfig,
@@ -43,6 +42,7 @@ from sienerf_torch.ops.optim import (
     tree_map,
     tree_unflatten,
 )
+from sienerf_torch.tracing import PhaseClock
 from sienerf_torch.utils.bbox import BoundingBox
 from sienerf_torch.utils.camera import uv_to_ray
 
@@ -123,7 +123,7 @@ class VolumeEngine:
         return torch.sigmoid(out[:, :3]), torch.exp(torch.clamp(out[:, 3], -10, 10))
 
     def loss_and_grads(self, params: dict, pos: torch.Tensor, clock=None):
-        clock = clock or _PhaseClock(None, self.device)
+        clock = clock or PhaseClock(None, self.device)
         sigma = self.gt_sigma(pos)
         target = torch.cat([self.gt_radiance(pos), sigma[:, None]], dim=-1)
         w = torch.cat([(sigma > 1e-3)[:, None].expand(-1, 3).float(),
@@ -141,7 +141,7 @@ class VolumeEngine:
     def train_step(self, state: dict, pos: torch.Tensor, clock=None):
         """One step on positions pos (B, 3) -> (state, loss); the state is
         updated in place."""
-        clock = clock or _PhaseClock(None, self.device)
+        clock = clock or PhaseClock(None, self.device)
         loss, grads = self.loss_and_grads(state["params"], pos, clock)
         params, opt = optim_step(self.opt, state["opt"], state["params"], grads,
                                  l2_mask(self.net, state["params"]), inplace=True)
@@ -153,7 +153,7 @@ class VolumeEngine:
         """n_steps steps -> (state, mean loss as a 0-d tensor).  With
         stats["sync_phases"], stats["phase_s"] receives the seconds of
         sample / ground_truth / field / optimizer."""
-        clock = _PhaseClock(stats, self.device, VOLUME_TRAIN_PHASES)
+        clock = PhaseClock(stats, self.device, VOLUME_TRAIN_PHASES)
         losses = []
         for _ in range(n_steps):
             pos = self.draw_positions(generator)
@@ -172,7 +172,7 @@ class VolumeEngine:
         uniforms are draw(i, N): (free-flight u in [1e-7, 1), acceptance u
         in [0, 1)), by default from `generator`; stats["march_iters"]
         counts the iterations."""
-        clock = clock or _PhaseClock(None, self.device)
+        clock = clock or PhaseClock(None, self.device)
         N, dev = origins.shape[0], origins.device
         if draw is None:
             def draw(_i, n):
@@ -235,7 +235,7 @@ class VolumeEngine:
         uniforms (render_rays); by default they come from `generator`, or
         from one seeded with 0.  With stats["sync_phases"], stats["phase_s"]
         receives the seconds of setup / march / field / shade."""
-        clock = _PhaseClock(stats, self.device, VOLUME_FRAME_PHASES)
+        clock = PhaseClock(stats, self.device, VOLUME_FRAME_PHASES)
         dev = self.device
         if generator is None and draw is None:
             generator = torch.Generator(device=dev).manual_seed(0)

@@ -24,6 +24,7 @@ import torch
 from sienerf_torch.ops import cuda_lib
 from sienerf_torch.ops.sweep import fold_partials, slab_schedule, sweep_composite
 from sienerf_torch.parallel.mesh import all_gather, shard_range
+from sienerf_torch.tracing import RECORDER
 
 _INTERPS = ("nearest", "bilinear")
 
@@ -68,7 +69,9 @@ def sweep_composite_kernel(volume, o_c, eb, ec, near, min_transmittance,
     slab-phase jitter in [0, 1) -> (rgb (Hi, Wi, 3), opacity, T,
     depth_t (Hi, Wi)), all f32, and the best weight (Hi, Wi) last with
     `return_bw`.  Launches the CUDA kernel for CUDA tensors; tensors on the
-    CPU take the plain version."""
+    CPU take the plain version.  While the recorder records (tracing.py)
+    the counting variant adds the samples it composites to device counter
+    `k2.live_samples`."""
     if interp not in _INTERPS:
         raise ValueError(f"sweep_composite_kernel: unknown interp {interp!r}")
     kw = dict(resolution=resolution, n_cascades=n_cascades, interp=interp,
@@ -110,6 +113,7 @@ def sweep_composite_kernel(volume, o_c, eb, ec, near, min_transmittance,
     T = torch.empty((Hi, Wi), **f32)
     bt = torch.empty((Hi, Wi), **f32)
     bw = torch.empty((Hi, Wi), **f32) if return_bw else None
+    live = RECORDER.device_counter("k2.live_samples", dev) if RECORDER.on else None
 
     lib = cuda_lib.load("sweep")
     fn = lib.sweep_composite_launch
@@ -119,7 +123,7 @@ def sweep_composite_kernel(volume, o_c, eb, ec, near, min_transmittance,
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
         + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
         + [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 2
-        + [ctypes.c_void_p] * 6)
+        + [ctypes.c_void_p] * 7)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(volume.data_ptr(), *strides, int(channel_last),
@@ -132,7 +136,8 @@ def sweep_composite_kernel(volume, o_c, eb, ec, near, min_transmittance,
                   float(np.float32(0.0 if phase is None else phase)),
                   int(interp != "nearest"), int(data_flip),
                   C.data_ptr(), op.data_ptr(), T.data_ptr(), bt.data_ptr(),
-                  None if bw is None else bw.data_ptr(), stream)
+                  None if bw is None else bw.data_ptr(),
+                  None if live is None else live.data_ptr(), stream)
     cuda_lib.check(lib, "sweep", code)
     sweep_composite_kernel.launches += 1
     return (C, op, T, bt, bw) if return_bw else (C, op, T, bt)

@@ -46,6 +46,7 @@ from sienerf_torch.ops.meshing import extract_mesh, optimise_mesh
 from sienerf_torch.ops.optim import inference_params
 from sienerf_torch.ops.samplers import ld_pixel_offset
 from sienerf_torch.ops.tonemap import error_overlay
+from sienerf_torch.tracing import RECORDER
 from sienerf_torch.utils import log
 from sienerf_torch.utils.camera import camera_slerp
 from sienerf_torch.utils.config import default_configs_dir, load_network_config
@@ -358,7 +359,13 @@ class Session:
         network at pixel centres (alpha 1 for three channels); an SDF its
         sphere-traced frame (alpha 1; SdfEngine.render_frame's options in
         kw); a volume its delta-tracked frame of spp passes, alpha the
-        opacity (VolumeEngine.render_frame's options in kw)."""
+        opacity (VolumeEngine.render_frame's options in kw).  Under
+        torch.profiler the call is a `render` span of the recorder
+        (tracing.py), each spp pass a `pass` span."""
+        with RECORDER.frame("render", self.device):
+            return self._render(width, height, camera_matrix, focal, spp, renderer, **kw)
+
+    def _render(self, width, height, camera_matrix, focal, spp, renderer, **kw):
         if self.engine is None:
             raise RuntimeError("load a scene or a snapshot first")
         if not isinstance(self.engine, NerfEngine) and renderer != "live":
@@ -405,32 +412,34 @@ class Session:
         spp = max(int(spp), 1)
         acc = None
         for i in range(spp):
-            cam = start
-            if not np.allclose(start, end):
-                t = torch.tensor([(i + 0.5) / spp], dtype=torch.float32)
-                cam = camera_slerp(torch.from_numpy(start)[None], torch.from_numpy(end)[None],
-                                   t)[0].numpy()
-            off = ld_pixel_offset(i) if spp > 1 else None
-            phase = np.float32((i + 0.5) / spp) if spp > 1 else None
-            if renderer == "sweep":
-                grid, meta = self._baked
-                out5 = render_frame_sweep(
-                    eng, params, grid, meta, cam, focal, width=width,
-                    height=height, pixel_offset=off, axis_phase=phase, packed=True, **kw)
-                rgba = out5[:4].permute(1, 2, 0)
-            elif renderer == "baked":
-                grid, meta = self._baked
-                rgba, _ = render_frame_baked(
-                    eng, params, self.state["occ"]["bitfield"], grid, cam, focal,
-                    width=width, height=height, resolution=meta["resolution"],
-                    mode=meta["mode"], n_cascades=meta["n_cascades"], pixel_offset=off,
-                    t_phase=phase, **kw)
-            else:
-                rgba, _ = eng.render_frame(
-                    params, self.state["occ"]["bitfield"], width, height,
-                    cam, focal, pixel_offset=off, **kw)
-            a = rgba.double()
-            acc = a if acc is None else acc + a
+            with RECORDER.span("pass", device=True):
+                cam = start
+                if not np.allclose(start, end):
+                    t = torch.tensor([(i + 0.5) / spp], dtype=torch.float32)
+                    cam = camera_slerp(torch.from_numpy(start)[None],
+                                       torch.from_numpy(end)[None], t)[0].numpy()
+                off = ld_pixel_offset(i) if spp > 1 else None
+                phase = np.float32((i + 0.5) / spp) if spp > 1 else None
+                if renderer == "sweep":
+                    grid, meta = self._baked
+                    out5 = render_frame_sweep(
+                        eng, params, grid, meta, cam, focal, width=width,
+                        height=height, pixel_offset=off, axis_phase=phase, packed=True, **kw)
+                    rgba = out5[:4].permute(1, 2, 0)
+                elif renderer == "baked":
+                    grid, meta = self._baked
+                    rgba, _ = render_frame_baked(
+                        eng, params, self.state["occ"]["bitfield"], grid, cam, focal,
+                        width=width, height=height, resolution=meta["resolution"],
+                        mode=meta["mode"], n_cascades=meta["n_cascades"], pixel_offset=off,
+                        t_phase=phase, **kw)
+                else:
+                    rgba, _ = eng.render_frame(
+                        params, self.state["occ"]["bitfield"], width, height,
+                        cam, focal, pixel_offset=off, **kw)
+                with RECORDER.span("accumulate", device=True):
+                    a = rgba.double()
+                    acc = a if acc is None else acc + a
         return (acc / spp).float()
 
 
