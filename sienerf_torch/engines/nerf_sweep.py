@@ -47,6 +47,7 @@ from sienerf_torch.ops.sweep import canon_coords, orient_grid, sweep_composite, 
 from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel, sweep_composite_sharded
 from sienerf_torch.parallel.mesh import gather_rows, shard_range
 from sienerf_torch.tracing import RECORDER
+from sienerf_torch.utils.device_inputs import constant
 
 E_MAX = 16.0  # gnomonic clamp: rays more than ~86 deg off-axis render as background
 
@@ -260,7 +261,7 @@ def _warp_epilogue(g: dict, C, op, bt, params, background):
     rgb = torch.where(good[:, None], outs[:, :3], 0.0)
     opacity = torch.where(good, outs[:, 3].clamp(0.0, 1.0), 0.0)
     depth = torch.where(good, outs[:, 4], 0.0) / torch.clamp(g["dn"], min=1e-9)
-    bg = torch.as_tensor(np.asarray(background, np.float32), device=C.device)
+    bg = constant(np.asarray(background, np.float32), C.device)
     if "envmap" in params:
         bg = background_behind_envmap(params["envmap"], g["d"], bg)
     return rgb + (1.0 - opacity)[:, None] * bg, opacity, depth

@@ -7,6 +7,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from sienerf_torch.utils.device_inputs import constant
+
 
 @dataclass(frozen=True)
 class BoundingBox:
@@ -39,8 +41,8 @@ class BoundingBox:
     def ray_intersect(self, origin: torch.Tensor, direction: torch.Tensor,
                       eps: float = 1e-12):
         """Slab test -> (tmin, tmax); a miss has tmin > tmax."""
-        lo = torch.as_tensor(self.min, device=origin.device)
-        hi = torch.as_tensor(self.max, device=origin.device)
+        lo = constant(self.min, origin.device)
+        hi = constant(self.max, origin.device)
         tiny = torch.where(direction < 0, -eps, eps).to(direction.dtype)
         inv_d = 1.0 / torch.where(direction.abs() < eps, tiny, direction)
         t0 = (lo - origin) * inv_d

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from sienerf_torch.common import LensMode
+from sienerf_torch.utils.device_inputs import upload
 
 
 @dataclass(frozen=True)
@@ -150,7 +151,7 @@ def uv_to_ray(uv: torch.Tensor, resolution, focal_length, camera_matrix,
     `distortion_grid`, a (R, R, 2) map, adds its bilinear value at uv to
     the camera-frame x and y."""
     dev = uv.device
-    cam = torch.as_tensor(np.asarray(camera_matrix, np.float32), device=dev)
+    cam = upload(np.asarray(camera_matrix, np.float32), dev)
     res = np.asarray(resolution, np.float32)
     fl = np.asarray(focal_length, np.float32)
     sc = np.asarray(screen_center, np.float32)
