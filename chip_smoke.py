@@ -38,7 +38,10 @@ field (data/fox_render.snap: 8 levels x 4 features, 2^19 rows, fp8 table):
   shadow rays and BRDF shading, then K1 and K2 with the mesh's per-pixel
   t_stop) timed and split by part, held to their plain versions, to the
   live hybrid frame and, at 48x27, to the CPU; the BVH tier on an
-  81,920-triangle sphere; the trained student saved, loaded back as a scene
+  81,920-triangle sphere, 1280x720 frames through Session.render with K3
+  (the BVH walk, sienerf_torch/csrc/bvh.cu) launched three times a frame,
+  each launch's rays held bit for bit to the plain walk, timed and
+  bounded; the trained student saved, loaded back as a scene
   object and rendered bit-equal; and two training bundles from one seed,
   bit-equal.
 
@@ -222,6 +225,8 @@ HYBRID_SMALL = (320, 180)
 # timed 720p hybrid frames (3.59-3.60 s each on an H100, within 0.1 % of one
 # another): one, after the first and a warm-up
 HYBRID_TIMED = 1
+# timed 720p frames of the 81,920-triangle sphere (the BVH tier, K3)
+BVH_TIMED = 3
 # kernel frame vs plain frame: a NeRF fragment whose depth lies within
 # rounding of the mesh's can fall on either side of the depth test
 HYBRID_MIN_AGREE = 0.999
@@ -750,7 +755,8 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
     (Session.load_file of a geometry scene JSON), a probe grid baked from
     the fox as the mesh's ambient light, the 720p hybrid sweep frame through
     K1 and K2 with the mesh's per-pixel t_stop, held to its plain versions,
-    to the live hybrid frame and (48x27) to the CPU; the BVH tier; the
+    to the live hybrid frame and (48x27) to the CPU; the BVH tier (K3,
+    held to the plain walk on a 720p frame's rays); the
     trained student's snapshot round trip; and the trainer's determinism."""
     import numpy as np
     import torch
@@ -761,6 +767,7 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
     from sienerf_torch.engines.nerf_sweep import axis_view
     from sienerf_torch.geom.bvh import brute_raytrace, bvh_raytrace
     from sienerf_torch.geom.mesh_io import icosphere
+    from sienerf_torch.ops import bvh_kernel
     from sienerf_torch.ops.shade import shade_volume, shade_volume_plain
     from sienerf_torch.ops.sweep_kernel import sweep_composite_kernel, sweep_composite_plain
     from sienerf_torch.session import Session
@@ -799,20 +806,26 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
     geo.brdf = dataclasses.replace(geo.brdf, basecolor=(0.75, 0.72, 0.68),
                                    ambientcolor=(1.0, 1.0, 1.0))
 
-    # 4. the 720p hybrid sweep frame, the main path: counts from 0
+    # 4. the 720p hybrid sweep frame, the main path (Session.render): counts
+    # from 0
     def frame(w=WIDTH, h=HEIGHT, g=geo, **kw):
         f = g.render_frame(w, h, cam, tuple(x * w / WIDTH for x in FOCAL), **kw)
         torch.cuda.synchronize()
         return f
 
+    def session_frame():
+        f = hs.render(WIDTH, HEIGHT, cam, FOCAL, renderer="sweep")
+        torch.cuda.synchronize()
+        return f
+
     shade_volume.launches = sweep_composite_kernel.launches = 0
     t = time.perf_counter()
-    first, depth = frame(renderer="sweep")
+    first = session_frame()
     out["first_frame_s"] = time.perf_counter() - t  # includes the R=256 bake
     times = []
     for _ in range(HYBRID_TIMED):
         t = time.perf_counter()
-        rgba, depth = frame(renderer="sweep")
+        rgba = session_frame()
         times.append(1e3 * (time.perf_counter() - t))
     out["launches"] = {"shade": shade_volume.launches, "sweep": sweep_composite_kernel.launches}
     out["frame_ms"], out["frame_ms_runs"] = statistics.median(times), times
@@ -820,7 +833,6 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
     for name, n in out["launches"].items():
         check(n == n_frames, f"hybrid path: kernel {name} launched {n} times for {n_frames} "
                              f"frames")
-    cover = float(torch.isfinite(depth).float().mean())
     mesh_hit = geo.render_mesh_rays(*geo._frame_rays(WIDTH, HEIGHT, cam, FOCAL, dev))[2]
     out["mesh_cover"] = float(mesh_hit.float().mean())
     check(rgba.shape == (HEIGHT, WIDTH, 4) and bool(torch.isfinite(rgba).all()),
@@ -829,8 +841,9 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
                                              "the pixels, not 10-40 %")
     stats = {"sync_phases": True}
     t = time.perf_counter()
-    frame(renderer="sweep", stats=stats)
+    _, depth = frame(renderer="sweep", stats=stats)
     synced = 1e3 * (time.perf_counter() - t)
+    cover = float(torch.isfinite(depth).float().mean())
     out["split_ms"] = {k: 1e3 * v for k, v in stats["phase_s"].items()}
     log(f"[hybrid] 1280x720 sweep frame: first {out['first_frame_s']:.2f} s (bake included), "
         f"median of {HYBRID_TIMED} {out['frame_ms']:.1f} ms (runs {[round(x, 1) for x in times]}); launches "
@@ -912,20 +925,71 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
     check(out["cpu_agree"] >= LIVE_MIN_AGREE, "live hybrid: card and CPU frames disagree")
     del cpu_fox, cs
 
-    # 7. the BVH tier: 81,920 triangles at 320x180; and the two tiers on
-    # the 20,480-triangle sphere, which both take
+    # 7. the BVH tier on the main path: the 81,920-triangle sphere at full
+    # size through Session.render, K3 launched three times a frame (primary,
+    # shadow and depth-stop rays); each launch's rays held to the plain walk
+    # to the bit, timed, and bounded; then the two tiers on the
+    # 20,480-triangle sphere, which both take
     big = icosphere(6)
     bscene = _write_scene(tmp, "sphere_big", big, center, HYBRID_RADIUS)
-    bgeo = Session(device=dev).load_file(bscene).engine
+    bs = Session(device=dev).load_file(bscene)
+    bgeo = bs.engine
     check(bgeo.brute_dev is None, "the 81,920-triangle mesh did not take the BVH tier")
     bgeo.objects.append(fox_obj())
     bgeo.probe_grid, bgeo.shade_mode, bgeo.brdf = grid, "grid", geo.brdf
     bgeo.objects[-1]._bake = geo.objects[-1]._bake
-    frame(sw, sh, g=bgeo, renderer="sweep")  # warm-up
-    t = time.perf_counter()
-    bframe, _ = frame(sw, sh, g=bgeo, renderer="sweep")
-    out["bvh_frame_ms"] = 1e3 * (time.perf_counter() - t)
+
+    def bvh_frame():
+        f = bs.render(WIDTH, HEIGHT, cam, FOCAL, renderer="sweep")
+        torch.cuda.synchronize()
+        return f
+
+    bvh_frame()  # warm-up
+    walk = bvh_kernel.bvh_walk_kernel
+    walk.launches = shade_volume.launches = sweep_composite_kernel.launches = 0
+    times = []
+    for _ in range(BVH_TIMED):
+        t = time.perf_counter()
+        bframe = bvh_frame()
+        times.append(1e3 * (time.perf_counter() - t))
+    out["bvh_frame_ms"], out["bvh_frame_ms_runs"] = statistics.median(times), times
+    out["bvh_launches"] = {"bvh_walk": walk.launches, "shade": shade_volume.launches,
+                           "sweep": sweep_composite_kernel.launches}
+    check(out["bvh_launches"] == {"bvh_walk": 3 * BVH_TIMED, "shade": BVH_TIMED,
+                                  "sweep": BVH_TIMED},
+          f"BVH tier frame: launches {out['bvh_launches']} for {BVH_TIMED} frames, not K3 "
+          f"3, K1 1 and K2 1 a frame")
     check(bool(torch.isfinite(bframe).all()), "BVH tier frame: non-finite values")
+    calls = []
+
+    def captured(bvh, o, d, t_max=1e10, **kw):
+        calls.append((bvh, o, d, t_max, kw))
+        return walk(bvh, o, d, t_max, **kw)
+
+    captured.launches = 0  # the wrapper counts its launches under its module's name
+    bvh_kernel.bvh_walk_kernel = captured
+    try:
+        bvh_frame()
+    finally:
+        bvh_kernel.bvh_walk_kernel = walk
+    kinds = ["shadow" if kw.get("any_hit") else "closest" for _, _, _, _, kw in calls]
+    check(kinds == ["closest", "shadow", "closest"] and calls[0][2].shape[0] == WIDTH * HEIGHT,
+          f"BVH tier frame: K3's launches were {kinds}, not primary, shadow, depth-stop")
+    out["k3"] = k3_agreement(calls, walk, cuda_ms)
+    out["k3"]["launches"] = out["bvh_launches"]["bvh_walk"]
+    k3 = out["k3"]
+    log(f"[hybrid] BVH tier ({big.shape[0]} triangles) {WIDTH}x{HEIGHT} sweep frame through "
+        f"Session.render: median of {BVH_TIMED} {out['bvh_frame_ms']:.1f} ms, launches "
+        f"{out['bvh_launches']}; K3 vs the plain walk on its rays: "
+        + "; ".join(f"{n} {r['rays']} rays ({r['walked']} walked) equal {r['equal']}, "
+                    f"K3 {r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms"
+                    for n, r in k3["by_ray_set"].items())
+        + f"; K3 {k3['ms']:.3f} ms a frame, plain {k3['plain_ms']:.1f} ms, bound "
+          f"{k3['bound_ms']:.4f} ms ({k3['bound_by']})")
+    check(all(r["equal"] for r in k3["by_ray_set"].values()),
+          "K3 and the plain walk disagree on the BVH tier frame's rays")
+    del bs, bgeo, bframe, calls
+    sw, sh = HYBRID_SMALL
     o, d = geo._frame_rays(sw, sh, cam, tuple(x * sw / WIDTH for x in FOCAL), dev)
     d = d / torch.sqrt((d * d).sum(-1, keepdim=True))
     t = time.perf_counter()
@@ -939,13 +1003,11 @@ def hybrid_phase(fox, tr, dev, cuda_ms) -> dict:
     out["tiers"] = {"hit_agree": same_hit, "same_triangle": float(both.float().sum() /
                                                                   (rid >= 0).float().sum()),
                     "t_max_rel_err": t_err, "bvh_trace_ms": bvh_ms}
-    log(f"[hybrid] BVH tier ({big.shape[0]} triangles) {sw}x{sh} sweep frame "
-        f"{out['bvh_frame_ms']:.1f} ms; BVH vs brute on the {small.shape[0]}-triangle sphere at "
-        f"{sw}x{sh}: hit masks agree on {100 * same_hit:.3f} %, same triangle on "
+    log(f"[hybrid] BVH vs brute on the {small.shape[0]}-triangle sphere at {sw}x{sh}: hit "
+        f"masks agree on {100 * same_hit:.3f} %, same triangle on "
         f"{100 * out['tiers']['same_triangle']:.3f} % of hits, t within {t_err:.2e} relative "
         f"(BVH trace {bvh_ms:.1f} ms)")
     check(same_hit >= HIT_MIN_AGREE and t_err <= 1e-5, "BVH and brute tiers disagree")
-    del bgeo, bframe
 
     # 8. the trained student, in memory and through its saved snapshot
     geo_mem = Session(device=dev).load_file(scene).engine
@@ -1341,6 +1403,55 @@ def k2_bound_of(view, flip: bool, o_c, eb, ec, near, min_t, R: int, K: int,
     tb, to = 1e3 * nbytes / HBM_BPS, 1e3 * samples * K2_FLOPS_PER_SAMPLE / F32_FLOPS
     return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations",
             "bytes": nbytes, "samples": samples, "texels": texels}
+
+
+def k3_agreement(calls, walk, cuda_ms) -> dict:
+    """K3's launches of one frame, replayed: each against the plain walk
+    (geom/bvh.py::bvh_raytrace_plain) on the same rays (ids, u, v and t's
+    bits equal; any hit equal to the plain closest hit's id >= 0), timed,
+    and bounded as k3_roofline bounds them: the box and triangle tests of
+    the benchmark's own walk (perfbench/bvh_work.py) on every 64th walked
+    ray at the f32 peak, or the rays in, the results out and the BVH once
+    at the HBM rate -> {"by_ray_set", "ms", "plain_ms", "bound_ms",
+    "bound_by"}."""
+    import torch
+
+    from perfbench import bvh_work
+    from sienerf_torch.geom.bvh import bvh_raytrace_plain
+
+    by, flops, nbytes = {}, 0, 0
+    for name, (bvh, o, d, t_max, kw) in zip(("primary", "shadow", "depth_stop"), calls):
+        n, mask, any_hit = d.shape[0], kw.get("mask"), bool(kw.get("any_hit"))
+        got = walk(bvh, o, d, t_max, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = bvh_raytrace_plain(bvh, o, d, t_max, mask=mask)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t)
+        if any_hit:
+            equal = bool(torch.equal(got, want[1] >= 0))
+        else:
+            bits = [x.view(torch.int32) for x in (got[0], want[0], got[2], want[2], got[3],
+                                                   want[3])]
+            equal = bool(torch.equal(got[1], want[1])) and all(
+                bool(torch.equal(a, b)) for a, b in zip(bits[::2], bits[1::2]))
+        ms = cuda_ms(lambda: walk(bvh, o, d, t_max, **kw), 10)
+        walked = torch.arange(n, device=d.device) if mask is None else torch.nonzero(mask)[:, 0]
+        sample = walked[::bvh_work.STRIDE]
+        shared = o.stride(0) == 0
+        n_box, n_tri, _, _ = bvh_work.walk(bvh, o[0] if shared else o[sample], d[sample],
+                                           any_hit=any_hit)
+        flops += bvh_work.STRIDE * (n_box * bvh_work.BOX_FLOPS + n_tri * bvh_work.TRI_FLOPS)
+        nbytes += (12 if shared else 12 * walked.numel()) + 12 * walked.numel() \
+            + (n if mask is not None else 0) + (n if any_hit else 20 * n) \
+            + bvh["skip"].shape[0] * 48 + bvh["tri_a"].shape[0] * 36
+        by[name] = {"rays": n, "walked": int(walked.numel()), "equal": equal, "ms": ms,
+                    "plain_ms": plain_ms}
+    tb, to = 1e3 * nbytes / HBM_BPS, 1e3 * flops / F32_FLOPS
+    return {"by_ray_set": by, "ms": sum(r["ms"] for r in by.values()),
+            "plain_ms": sum(r["plain_ms"] for r in by.values()), "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations", "bytes": nbytes,
+            "flops": flops}
 
 
 def sync_ms(fn) -> float:
@@ -4018,7 +4129,8 @@ def main() -> int:
                         "frame_ms", "frame_ms_runs", "split_ms", "probe_bake_s",
                         "first_frame_s", "mesh_cover", "frame_vs_plain_agree",
                         "sweep_vs_live_psnr_db", "sweep_vs_live_ssim", "cpu_agree",
-                        "bvh_frame_ms", "tiers", "roundtrip_equal", "determinism")},
+                        "bvh_frame_ms", "bvh_frame_ms_runs", "bvh_launches", "tiers",
+                        "roundtrip_equal", "determinism")},
                     "baked": {k: bk[k] for k in (
                         "frame_ms", "frame_ms_runs", "first_frame_s", "counts", "split_ms",
                         "host_wait_ms", "kernels_a_round", "busy_ms", "g2_device_ms",
@@ -4036,6 +4148,13 @@ def main() -> int:
         k["launches_multi_path_by_rank"] = [r[k["name"]] for r in mu["launches_by_rank"]]
     kernels[0]["max_abs_err_multi_planes"] = mu["k1_err"]
     kernels[1]["max_abs_err_multi_schedule"] = mu["k2_err"]
+    k3 = hy["k3"]  # no TPU kernel computes K3: the JAX package walks the BVH in a loop
+    kernels.append({"name": "bvh_walk", "route": "cuda", "source": "sienerf_torch/csrc/bvh.cu",
+                    "replaces": None, "launches": k3["launches"],
+                    "max_abs_err": 0.0 if all(r["equal"] for r in k3["by_ray_set"].values())
+                    else None, "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+                    "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
+                    "by_ray_set": k3["by_ray_set"], "hybrid_bvh_frame_ms": hy["bvh_frame_ms"]})
     log(json.dumps({"multi": {k: v for k, v in mu.items() if k != "ranks"}}))
     log(smi)
     print(json.dumps({"kernels": kernels}))

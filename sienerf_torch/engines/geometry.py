@@ -5,12 +5,16 @@ A scene is a JSON scene graph {"geometry": [{"type": "Mesh" | "Nerf",
 "path", "center", "scale"}]}.  Meshes are normalised into the unit cube,
 scaled and moved to their centre, and merged into one BVH whose
 triangles keep their object id; NeRF objects load from native or .ingp
-snapshots, or are attached in memory.
+snapshots, or are attached in memory (attach_nerf): a NeRF entry without
+a "path" is such a slot, for a render-only snapshot that
+Session.load_snapshot loads.
 
 Per frame:
 - the mesh pass traces every pixel's closest hit (the dense brute-force
-  tier up to BRUTE_MAX_TRIS triangles, the BVH above), traces a shadow ray
-  from each hit towards the sun, and shades the hit with the Disney BRDF;
+  tier up to BRUTE_MAX_TRIS triangles, the BVH above: K3 on CUDA,
+  ops/bvh_kernel.py), traces a shadow ray from each hit towards the sun
+  (every pixel sent with the hit mask, so nothing is compacted on the
+  host), and shades the hit with the Disney BRDF;
   the ambient term is constant sky light, a baked irradiance envmap, or
   the irradiance probe grid gathered from the NeRF
   (engines/irradiance.py);
@@ -26,6 +30,12 @@ Per frame:
   with a per-pixel stop t_stop, the euclidean distance to the mesh along
   each direction of the sweep's intermediate image, then blended over the
   mesh by the same rule.
+
+The sweep frame makes no host synchronise: its sweep axis comes from the
+camera on the host (nerf_sweep._pick_axis, the same central ray), its
+constants from utils/device_inputs.py.  Under torch.profiler each BVH
+call is a `bvh` device span of the recorder (tracing.py), inside the
+frame's PhaseClock phases.
 
 Depth units: the mesh pass returns z-depth t / |d| for camera rays whose
 direction has z = 1 in the camera frame; K2's depth is euclidean and is
@@ -43,7 +53,13 @@ import numpy as np
 import torch
 
 from sienerf_torch.common import NERF_RENDERING_NEAR_DISTANCE
-from sienerf_torch.geom.bvh import brute_raytrace, build_brute, build_bvh, bvh_raytrace
+from sienerf_torch.geom.bvh import (
+    brute_raytrace,
+    build_brute,
+    build_bvh,
+    bvh_any_hit,
+    bvh_raytrace,
+)
 from sienerf_torch.geom.mesh_io import load_mesh, normalize_to_unit_cube, triangle_normals
 from sienerf_torch.ops.brdf import (
     SUN_COLOR,
@@ -53,8 +69,10 @@ from sienerf_torch.ops.brdf import (
     sky_ambient,
 )
 from sienerf_torch.ops.optim import inference_params
+from sienerf_torch.tracing import RECORDER
 from sienerf_torch.utils.bbox import BoundingBox
 from sienerf_torch.utils.camera import uv_to_ray
+from sienerf_torch.utils.device_inputs import constant
 
 # the dense tier traces faster than the BVH loop up to at least this size
 BRUTE_MAX_TRIS = 65536
@@ -113,6 +131,10 @@ class GeometryEngine:
         for entry in spec.get("geometry", []):
             center = np.asarray(entry.get("center", [0, 0, 0]), np.float32)
             kind = entry.get("type", "Mesh").lower()
+            if kind == "nerf" and "path" not in entry:  # a slot for attach_nerf
+                objects.append(GeometryObject("nerf", center, ""))
+                aabb = aabb.enlarged(BoundingBox(center, center + 1.0))
+                continue
             p = _resolve_path(entry["path"], roots)
             if kind == "mesh":
                 tri = normalize_to_unit_cube(load_mesh(p))
@@ -167,7 +189,7 @@ class GeometryEngine:
 
         n = 0
         for o in self.objects:
-            if o.kind != "nerf" or o.nerf is not None:
+            if o.kind != "nerf" or o.nerf is not None or not o.path:
                 continue
             p = Path(o.path)
             if not p.exists() or p.suffix.lower() not in (".ingp", ".msgpack", ".snap"):
@@ -200,15 +222,28 @@ class GeometryEngine:
             from sienerf_torch.engines.irradiance import sample_probe_grid
 
             return sample_probe_grid(geom["probe_grid"], pos, normals)
-        up = torch.tensor(self.up_dir, dtype=torch.float32, device=pos.device)
-        amb = torch.tensor(self.brdf.ambientcolor, dtype=torch.float32, device=pos.device)
+        up = constant(_f32(self.up_dir), pos.device)
+        amb = constant(_f32(self.brdf.ambientcolor), pos.device)
         return amb * sky_ambient(normals, up)
 
     def _trace(self, geom: dict, o, d, t_max=1e10):
         """Closest hit: the dense tier for small scenes, the BVH otherwise."""
         if "brute" in geom:
             return brute_raytrace(geom["brute"], o, d, t_max)
-        return bvh_raytrace(geom["bvh"], o, d, t_max)
+        with RECORDER.span("bvh", device=True):
+            return bvh_raytrace(geom["bvh"], o, d, t_max)
+
+    def _occluded(self, geom: dict, o, d, mask):
+        """Shadow rays: True where a triangle lies along the ray, for the
+        rays where `mask` is True (False elsewhere)."""
+        if "brute" in geom:  # the dense tier traces the masked rays alone
+            out = torch.zeros_like(mask)
+            ids = torch.nonzero(mask)[:, 0]
+            if ids.numel():
+                out[ids] = brute_raytrace(geom["brute"], o[ids], d[ids])[1] >= 0
+            return out
+        with RECORDER.span("bvh", device=True):
+            return bvh_any_hit(geom["bvh"], o, d, mask=mask)
 
     def _geom_dict(self) -> dict:
         geom = {}
@@ -236,25 +271,21 @@ class GeometryEngine:
         normal = geom["tri_normals"][torch.clamp(tid, min=0)]
         normal = normal * torch.where((normal * d).sum(dim=-1, keepdim=True) > 0, -1.0, 1.0)
         dev = origins.device
-        sun = torch.tensor(self.sun_dir, dtype=torch.float32, device=dev)
+        sun = constant(_f32(self.sun_dir), dev)
         sun = sun / torch.sqrt((sun * sun).sum())
-        # shadow rays from the hits towards the sun; a miss keeps shadow 1
-        shadow = torch.ones_like(t)
-        hit_ids = torch.nonzero(hit)[:, 0]
-        if hit_ids.numel():
-            spos = pos[hit_ids] + normal[hit_ids] * 1e-3
-            _, stid, _, _ = self._trace(geom, spos, sun.expand(spos.shape))
-            shadow[hit_ids] = torch.where(stid >= 0, 0.0, 1.0)
-        base = (torch.tensor(self.brdf.basecolor, dtype=torch.float32, device=dev) ** 2
-                ).expand(pos.shape)
+        # shadow rays from the hits towards the sun, every ray sent with the
+        # hit mask; a miss keeps shadow 1
+        spos = pos + normal * 1e-3
+        shadow = torch.where(self._occluded(geom, spos, sun.expand(spos.shape), hit), 0.0, 1.0)
+        base = (constant(_f32(self.brdf.basecolor), dev) ** 2).expand(pos.shape)
         if self.floor_y is not None:
             on_floor = (pos[..., 1] < self.floor_y + 1e-3) & (d[..., 1] < 0)
             floor_col = checkerboard_floor_color(pos, self.aabb.min, float(self.aabb.diag[0]))
             base = torch.where(on_floor[..., None], floor_col, base)
-            up = torch.tensor([0.0, 1.0, 0.0], device=dev)
+            up = constant(_f32((0.0, 1.0, 0.0)), dev)
             normal = torch.where(on_floor[..., None], up, normal)
         amb = self._ambient_for(geom, pos, normal)
-        suncol = torch.tensor(SUN_COLOR, dtype=torch.float32, device=dev) * shadow[:, None]
+        suncol = constant(_f32(SUN_COLOR), dev) * shadow[:, None]
         b = self.brdf
         color = evaluate_shading(base, amb, suncol, sun.expand(pos.shape), -d, normal,
                                  metallic=b.metallic, subsurface=b.subsurface,
@@ -360,7 +391,7 @@ class GeometryEngine:
             n_rgb, n_op, n_depth = (torch.cat(x) for x in zip(*parts))
             rgb, alpha, depth = _blend_over(rgb, alpha, depth, n_rgb, n_op, n_depth)
         clock.phase("nerf")
-        bg = torch.as_tensor(np.asarray(background, np.float32), device=dev)
+        bg = constant(_f32(background), dev)
         rgb = rgb + (1.0 - alpha)[:, None] * bg
         rgba = torch.cat([rgb, alpha[:, None]], dim=-1)
         return rgba.reshape(height, width, 4), depth.reshape(height, width)
@@ -372,6 +403,7 @@ class GeometryEngine:
             E_MAX,
             _align,
             _fused_prep_eligible,
+            _pick_axis,
             axis_view,
             prepare_rgba_volume,
         )
@@ -388,16 +420,13 @@ class GeometryEngine:
         eng = obj.nerf
         dev = grid["rows"].device
         clock = PhaseClock(stats, dev, HYBRID_PHASES)
-        # the sweep axis from the centre pixel's ray, on the device
-        _, d0 = uv_to_ray(torch.tensor([[0.5, 0.5]], device=dev), (width, height),
-                          focal_length, camera_matrix)
-        d0 = d0[0].cpu().numpy()
-        axis = int(np.argmax(np.abs(d0)))
-        flip = bool(d0[axis] < 0)
+        # the sweep axis from the centre pixel's ray, on the host: the
+        # camera's third column, as uv_to_ray gives it at uv (0.5, 0.5)
+        axis, flip = _pick_axis(camera_matrix, focal_length, width, height)
         hi, wi = _align(1.15 * height), _align(1.15 * width)
         R, K = meta["resolution"], meta["n_cascades"]
         params = inference_params(obj.nerf_state.get("opt") or {}, obj.nerf_state["params"])
-        center = torch.as_tensor(np.asarray(obj.center, np.float32), device=dev)
+        center = constant(_f32(obj.center), dev)
         o, d = self._frame_rays(width, height, camera_matrix, focal_length, dev)
         clock.phase("rest")
 
@@ -471,7 +500,7 @@ class GeometryEngine:
 
         # (d) the depth-tested blend, as in the live hybrid
         rgb, alpha, depth = _blend_over(mrgb, malpha, mdepth, nrgb, nop, ndep)
-        bg = torch.as_tensor(np.asarray(background, np.float32), device=dev)
+        bg = constant(_f32(background), dev)
         rgb = rgb + (1.0 - alpha)[:, None] * bg
         rgba = torch.cat([rgb, alpha[:, None]], dim=-1)
         if stats is not None:
@@ -479,6 +508,10 @@ class GeometryEngine:
                 o_c, eb, ec, near, min_t), composite=(C, op, T, bt))
         clock.phase("rest")
         return rgba.reshape(height, width, 4), depth.reshape(height, width)
+
+
+def _f32(values) -> np.ndarray:
+    return np.asarray(values, np.float32)
 
 
 def _blend_over(rgb, alpha, depth, n_rgb, n_op, n_depth):

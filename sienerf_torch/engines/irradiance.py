@@ -30,6 +30,7 @@ from sienerf_torch.ops.grids import bilinear_sample_2d
 from sienerf_torch.ops.optim import inference_params
 from sienerf_torch.ops.samplers import halton_2d
 from sienerf_torch.utils.camera import dir_to_latlong_uv, latlong_to_dir
+from sienerf_torch.utils.device_inputs import constant
 
 
 def _latlong_dirs(width: int, height: int, device=None) -> torch.Tensor:
@@ -150,8 +151,8 @@ def sh_project_envmap(envmap: torch.Tensor) -> torch.Tensor:
 
 
 def _sh_band_weights(device) -> torch.Tensor:
-    return torch.tensor([_SH_A[0]] + [_SH_A[1]] * 3 + [_SH_A[2]] * 5,
-                        dtype=torch.float32, device=device)
+    return constant(np.asarray([_SH_A[0]] + [_SH_A[1]] * 3 + [_SH_A[2]] * 5, np.float32),
+                    device)
 
 
 def sh_irradiance(coeffs: torch.Tensor, normals: torch.Tensor) -> torch.Tensor:

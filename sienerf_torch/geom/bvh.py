@@ -8,12 +8,17 @@ dense brute-force tier).
   reordered so that each leaf's range is contiguous.
 - `bvh_raytrace`: a stackless walk, one node pointer per ray.  At an
   interior node a ray whose box test passes steps to node+1 (the first
-  child), otherwise to skip[node].  The loop is a host loop over the whole
-  ray batch, as ops/raymarch.py::march_rays runs its march: every step is
-  a handful of masked gathers and elementwise operations, and every
+  child), otherwise to skip[node].  CUDA tensors go to K3
+  (ops/bvh_kernel.py, csrc/bvh.cu), one thread a ray; other devices take
+  `bvh_raytrace_plain`, the same walk as a host loop over the whole ray
+  batch, as ops/raymarch.py::march_rays runs its march: every step is a
+  handful of masked gathers and elementwise operations, and every
   `_CHECK_EVERY` steps the host asks whether any ray still walks and stops
   if none does.  Steps after the last ray finished change nothing, so the
-  early exit is exact.
+  early exit is exact.  Every step moves a ray's pointer forward (node+1,
+  or a skip link past the subtree), so each walk ends within the node
+  count; the plain walks run until every ray is done and raise if a ray
+  outlives that bound (a malformed layout).
 - `brute_raytrace`: every ray against every triangle, for meshes of up to
   65,536 triangles.  With per-triangle plane constants the test is
   t = (k - n.o) / (n.d), u = (U.o + u_w) + t (U.d), v alike, so a tile of
@@ -22,7 +27,8 @@ dense brute-force tier).
   reference's run at Precision.HIGHEST.
 
 - The SDF mode's queries walk the same layout the same way:
-  `bvh_any_hit` (shadow rays; the closest hit's id >= 0),
+  `bvh_any_hit` (shadow rays; the closest hit's id >= 0, K3's any-hit
+  walk on CUDA),
   `bvh_count_hits` (every intersection along a ray: the parity of the
   watertight sign) and `bvh_closest_point` (the unsigned distance, a walk
   that enters a box only when it is nearer than the best triangle so far).
@@ -31,6 +37,7 @@ dense brute-force tier).
 from __future__ import annotations
 
 import sys
+import itertools
 from contextlib import contextmanager
 from dataclasses import dataclass
 
@@ -164,24 +171,55 @@ def _pick(x: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
     return x.gather(1, j[:, None])[:, 0]
 
 
-@torch.no_grad()
-def bvh_raytrace(bvh: dict, origins: torch.Tensor, dirs: torch.Tensor, t_max=1e10,
-                 max_steps: int = 2048, leaf_size: int = LEAF_SIZE):
-    """Closest hit through the BVH's device arrays (as_device_arrays) ->
-    (t (N,), tri_id (N,) int64, -1 on a miss, u (N,), v (N,))."""
-    N, dev = origins.shape[0], origins.device
+def _walk_steps(bvh: dict):
+    """Steps 0, 1, 2, ... of a plain walk, ending with an error if a ray
+    still walks after more steps than the BVH has nodes (each step moves
+    a pointer forward, so a sound layout never gets there)."""
+    n_nodes = bvh["skip"].shape[0]
+    for step in itertools.count():
+        if step > n_nodes + _CHECK_EVERY:
+            raise RuntimeError(f"BVH walk: a ray still walks after {step} steps over "
+                               f"{n_nodes} nodes; the skip links are malformed")
+        yield step
+
+
+def _inverse(dirs: torch.Tensor) -> torch.Tensor:
     eps = 1e-12
     tiny = torch.where(dirs < 0, -eps, eps)
-    inv_d = 1.0 / torch.where(dirs.abs() < eps, tiny, dirs)
+    return 1.0 / torch.where(dirs.abs() < eps, tiny, dirs)
+
+
+@torch.no_grad()
+def bvh_raytrace(bvh: dict, origins: torch.Tensor, dirs: torch.Tensor, t_max=1e10,
+                 leaf_size: int = LEAF_SIZE, mask: torch.Tensor | None = None):
+    """Closest hit through the BVH's device arrays (as_device_arrays) ->
+    (t (N,), tri_id (N,) int64, -1 on a miss, u (N,), v (N,)).  `mask`
+    (N,) bool, where given, leaves the rays where it is False unwalked
+    (misses).  K3 on CUDA tensors, the plain walk elsewhere."""
+    if origins.device.type == "cuda":
+        from sienerf_torch.ops.bvh_kernel import bvh_walk_kernel
+
+        return bvh_walk_kernel(bvh, origins, dirs, t_max, mask=mask, leaf_size=leaf_size)
+    return bvh_raytrace_plain(bvh, origins, dirs, t_max, leaf_size, mask)
+
+
+@torch.no_grad()
+def bvh_raytrace_plain(bvh: dict, origins: torch.Tensor, dirs: torch.Tensor, t_max=1e10,
+                       leaf_size: int = LEAF_SIZE, mask: torch.Tensor | None = None):
+    """bvh_raytrace's plain walk, on any device (K3's yardstick)."""
+    N, dev = origins.shape[0], origins.device
+    inv_d = _inverse(dirs)
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(N)
     n_tris = bvh["tri_a"].shape[0]
     offs = torch.arange(leaf_size, device=dev)
     node = torch.zeros((N,), dtype=torch.int64, device=dev)
+    if mask is not None:
+        node = torch.where(mask, node, -1)
     best_t = torch.minimum(torch.full((N,), float("inf"), device=dev), t_max)
     best_id = torch.full((N,), -1, dtype=torch.int64, device=dev)
     best_u = torch.zeros((N,), device=dev)
     best_v = torch.zeros((N,), device=dev)
-    for step in range(max_steps):
+    for step in _walk_steps(bvh):
         if step % _CHECK_EVERY == 0 and not bool((node >= 0).any()):
             break
         active = node >= 0
@@ -212,9 +250,16 @@ def bvh_raytrace(bvh: dict, origins: torch.Tensor, dirs: torch.Tensor, t_max=1e1
 
 
 def bvh_any_hit(bvh: dict, origins: torch.Tensor, dirs: torch.Tensor, t_max=1e10,
-                max_steps: int = 2048, leaf_size: int = LEAF_SIZE) -> torch.Tensor:
-    """Occlusion: True where the ray hits any triangle within t_max."""
-    return bvh_raytrace(bvh, origins, dirs, t_max, max_steps, leaf_size)[1] >= 0
+                leaf_size: int = LEAF_SIZE, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Occlusion: True where the ray hits any triangle within t_max (False
+    where `mask` is False).  K3's any-hit walk on CUDA tensors, which ends
+    a ray at its first hit; the plain closest hit elsewhere."""
+    if origins.device.type == "cuda":
+        from sienerf_torch.ops.bvh_kernel import bvh_walk_kernel
+
+        return bvh_walk_kernel(bvh, origins, dirs, t_max, any_hit=True, mask=mask,
+                               leaf_size=leaf_size)
+    return bvh_raytrace_plain(bvh, origins, dirs, t_max, leaf_size, mask)[1] >= 0
 
 
 def _leaf_triangles(bvh: dict, ni: torch.Tensor, offs: torch.Tensor):
@@ -229,17 +274,15 @@ def _leaf_triangles(bvh: dict, ni: torch.Tensor, offs: torch.Tensor):
 
 @torch.no_grad()
 def bvh_count_hits(bvh: dict, origins: torch.Tensor, dirs: torch.Tensor,
-                   max_steps: int = 4096, leaf_size: int = LEAF_SIZE) -> torch.Tensor:
+                   leaf_size: int = LEAF_SIZE) -> torch.Tensor:
     """The number of triangles each ray crosses (N,) int64: every
     intersection along it, wherever it lies."""
     N, dev = origins.shape[0], origins.device
-    eps = 1e-12
-    tiny = torch.where(dirs < 0, -eps, eps)
-    inv_d = 1.0 / torch.where(dirs.abs() < eps, tiny, dirs)
+    inv_d = _inverse(dirs)
     offs = torch.arange(leaf_size, device=dev)
     node = torch.zeros((N,), dtype=torch.int64, device=dev)
     count = torch.zeros((N,), dtype=torch.int64, device=dev)
-    for step in range(max_steps):
+    for step in _walk_steps(bvh):
         if step % _CHECK_EVERY == 0 and not bool((node >= 0).any()):
             break
         active = node >= 0
@@ -294,8 +337,7 @@ def _closest_on_triangle(p, a, ab, ac):
 
 
 @torch.no_grad()
-def bvh_closest_point(bvh: dict, points: torch.Tensor, max_steps: int = 4096,
-                      leaf_size: int = LEAF_SIZE):
+def bvh_closest_point(bvh: dict, points: torch.Tensor, leaf_size: int = LEAF_SIZE):
     """The nearest triangle of each point -> (unsigned distance (N,),
     triangle id (N,) int64, closest point (N, 3)): a walk over the skip
     links that enters a box only when it is nearer than the best so far."""
@@ -305,7 +347,7 @@ def bvh_closest_point(bvh: dict, points: torch.Tensor, max_steps: int = 4096,
     best_d2 = torch.full((N,), float("inf"), device=dev)
     best_id = torch.full((N,), -1, dtype=torch.int64, device=dev)
     best_p = torch.zeros((N, 3), device=dev)
-    for step in range(max_steps):
+    for step in _walk_steps(bvh):
         if step % _CHECK_EVERY == 0 and not bool((node >= 0).any()):
             break
         active = node >= 0

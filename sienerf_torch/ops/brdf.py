@@ -11,7 +11,10 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
+
+from sienerf_torch.utils.device_inputs import constant
 
 
 @dataclass(frozen=True)
@@ -75,7 +78,8 @@ def evaluate_shading(base_color, ambient_color, light_color, L, V, N, metallic=0
     fv = _schlick_fresnel(ndotv)
     amb = ambient_color * (0.2 + metallic * (fv - 0.2))[..., None] * base_color
 
-    lum_w = torch.tensor([0.3, 0.6, 0.1], dtype=base_color.dtype, device=base_color.device)
+    lum_w = constant(np.asarray([0.3, 0.6, 0.1], np.float32), base_color.device).to(
+        base_color.dtype)
     lum = (base_color * lum_w).sum(dim=-1, keepdim=True)
     ctint = base_color / (lum + 1e-5)
     one = torch.ones_like(base_color)
@@ -117,7 +121,7 @@ SKY_COLOR = (195.0 / 255.0 * 4.0, 215.0 / 255.0 * 4.0, 255.0 / 255.0 * 4.0)
 
 
 def _color(c, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(c, dtype=torch.float32, device=like.device)
+    return constant(np.asarray(c, np.float32), like.device)
 
 
 def sky_ambient(normal: torch.Tensor, up_dir: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNEL_SOURCES = ("shade", "sweep", "gather")
+KERNEL_SOURCES = ("shade", "sweep", "gather", "bvh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -355,7 +355,8 @@ class Session:
         way from `camera_matrix` to it.  A field with extra dims renders
         with training view `rendering_extra_dims_from_training_view`'s row
         (an explicit `extra_row` wins).  A geometry scene renders
-        its live hybrid frame (GeometryEngine.render_frame); an image its
+        its hybrid frame with `renderer` ("live", "baked" or "sweep"; one
+        pass: GeometryEngine.render_frame, its options in kw); an image its
         network at pixel centres (alpha 1 for three channels); an SDF its
         sphere-traced frame (alpha 1; SdfEngine.render_frame's options in
         kw); a volume its delta-tracked frame of spp passes, alpha the
@@ -368,12 +369,12 @@ class Session:
     def _render(self, width, height, camera_matrix, focal, spp, renderer, **kw):
         if self.engine is None:
             raise RuntimeError("load a scene or a snapshot first")
-        if not isinstance(self.engine, NerfEngine) and renderer != "live":
-            raise ValueError(f"renderer={renderer!r} is NeRF-only (mode is {self.mode.value})")
         if self.mode == TestbedMode.GEOMETRY:
             rgba, _ = self.engine.render_frame(width, height, camera_matrix,
-                                               focal or (width, width), **kw)
+                                               focal or (width, width), renderer=renderer, **kw)
             return rgba
+        if not isinstance(self.engine, NerfEngine) and renderer != "live":
+            raise ValueError(f"renderer={renderer!r} is NeRF-only (mode is {self.mode.value})")
         if isinstance(self.engine, ImageEngine):
             out = self.engine.render(self.state["params"], self.state["opt"], width, height)
             if out.shape[-1] == 3:

@@ -40,16 +40,21 @@ that each recording reuses, and are read only by `read()`.
 
 Launch counters.  The `.launches` integers on the kernel wrappers
 (`ops/shade.py::shade_volume`, `ops/sweep_kernel.py::sweep_composite_kernel`,
-`ops/gather.py::gather_rows`, `gather_small`) count every launch, on or
-off, and stay where their readers (the benchmark, `chip_smoke.py`, the
-tests) find them.
+`ops/gather.py::gather_rows`, `gather_small`,
+`ops/bvh_kernel.py::bvh_walk_kernel`) count every launch, on or off, and
+stay where their readers (the benchmark, `chip_smoke.py`, the tests) find
+them.
 
 The spans of a sweep frame (`Session.render`,
 `engines/nerf_sweep.py::render_frame_sweep`): `render` (host only), and
 in it one `pass` a spp pass holding `geometry`, `shade`, `composite`,
 `warp` and `accumulate` (all device spans); counter `k2.live_samples`
 (the samples K2 composited, a device counter).  `PhaseClock`'s phases are
-device spans too.  PERF.md lists which metric reads each.
+device spans too: the hybrid frame's (`engines/geometry.py`) are `mesh`,
+`depth_trace`, `shade`, `sweep` and `rest`, and each BVH walk inside them
+is a `bvh` device span; counter `k3.rays` (the rays K3 walked, a masked
+launch counting its mask's rays, a device counter added to by
+`ops/bvh_kernel.py`).  PERF.md lists which metric reads each.
 """
 
 from __future__ import annotations

@@ -266,8 +266,15 @@ def test_session_geometry_mode(tmp_path):
     mem = Session(device="cpu").load_file(tmp_path / "hybrid.geometry.json")
     mem.engine.attach_nerf(1, to.nerf, to.nerf_state)
     assert torch.equal(mem.render(24, 24, _cam(), (18.0, 18.0)), img)
-    with pytest.raises(ValueError, match="NeRF-only"):
-        s.render(24, 24, _cam(), (18.0, 18.0), renderer="sweep")
+    # every renderer reaches the geometry engine: the sweep hybrid (a small
+    # bake set on the object, as a caller may) and an unknown name
+    nerf._bake = nerf.nerf.bake_features(nerf.nerf_state["params"], nerf.nerf_state["occ"],
+                                         resolution=16)
+    sweep = s.render(24, 24, _cam(), (18.0, 18.0), renderer="sweep")
+    want, _ = s.engine.render_frame(24, 24, _cam(), (18.0, 18.0), renderer="sweep")
+    assert torch.equal(sweep, want) and not torch.equal(sweep, img)
+    with pytest.raises(ValueError, match="unknown renderer"):
+        s.render(24, 24, _cam(), (18.0, 18.0), renderer="march")
     with pytest.raises(RuntimeError, match="geometry"):
         s.train(16)
     with pytest.raises(RuntimeError, match="NeRF-mode"):
